@@ -1,0 +1,49 @@
+"""Committed model snapshots of the Airbot cube-push scenes.
+
+The machine that runs the port on the card has no ``mujoco``, so the env
+constructors read the compiled model from ``rsr_mjx_tpu_torch/assets/``
+with numpy alone (``physics.io.load_model_npz``).  This module rebuilds
+those files from the MJCF of ``scene.py`` through ``physics.io.put_model``,
+which needs ``mujoco``:
+
+    python -m rsr_mjx_tpu_torch.envs.airbot.snapshot
+
+Run it after any change to the scene builder or to ``put_model``; the
+tests hold the committed files against a fresh build.
+"""
+
+from __future__ import annotations
+
+import os
+
+from rsr_mjx_tpu_torch.envs.airbot.scene import build_cube_scene
+from rsr_mjx_tpu_torch.physics import io
+
+# the two cube-push variants: (table friction, cube friction)
+FRICTIONS = {'rsr': (0.4, 1.22), 'train': (1.0, 1.0)}
+# contact slots the solver sees (Model.ncon_sel) in the stored models
+MAX_CONTACTS = 24
+
+
+def path(variant: str) -> str:
+  return os.path.join(io.ASSETS, f'airbot_cube_push_{variant}.npz')
+
+
+def build(variant: str, device='cpu'):
+  """Compile the cube-push scene of ``variant`` with C MuJoCo."""
+  table, cube = FRICTIONS[variant]
+  return io.load_model_from_xml(
+      build_cube_scene(table_friction=table, cube_friction=cube),
+      max_contacts=MAX_CONTACTS, device=device,
+  )
+
+
+def main() -> None:
+  os.makedirs(io.ASSETS, exist_ok=True)
+  for variant in FRICTIONS:
+    io.save_model_npz(build(variant), path(variant))
+    print('wrote', path(variant))
+
+
+if __name__ == '__main__':
+  main()

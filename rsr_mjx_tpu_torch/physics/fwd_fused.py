@@ -1,0 +1,129 @@
+"""The fused forward chain of one physics step over a batch of envs.
+
+Counterpart of the batched lanes route of ``rsr_mjx_tpu/physics/
+fwd_fused.py`` (:230-295):
+
+  kinematics → com_vel … fwd_velocity (ends in K1) → narrow phase
+  → assembly with top-k selection (K2) → pyramid Newton solve (K3)
+  → per-env finite containment → (M + h·D)⁻¹ implicit solve (K1)
+
+Data arrives batch-major (B, …) and the chain runs with the batch in the
+trailing axis, as the JAX lanes route does; the outputs cross back once.
+Gradients through this chain come with a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from rsr_mjx_tpu_torch.physics import constraint as _constraint
+from rsr_mjx_tpu_torch.physics import lanes_assembly as _lanes
+from rsr_mjx_tpu_torch.physics import lanes_kinematics as _lkin
+from rsr_mjx_tpu_torch.physics import lanes_smooth as _ls
+from rsr_mjx_tpu_torch.physics import linalg_kernels as _lk
+from rsr_mjx_tpu_torch.physics import statics
+from rsr_mjx_tpu_torch.physics.types import Data, IntegratorType, Model
+
+# mjDSBL_EULERDAMP: <flag eulerdamp="disable"/> makes Euler fully explicit
+_DSBL_EULERDAMP = 32768
+
+
+def supported(m: Model) -> bool:
+  """Whether the fused chain covers model ``m``."""
+  if m.opt.integrator not in (IntegratorType.EULER, IntegratorType.IMPLICIT,
+                              IntegratorType.IMPLICITFAST):
+    return False
+  if m.nsensordata:
+    return False  # sensors are not ported yet
+  nsel = _constraint._selection_size(m)
+  return bool(
+      _ls.lanes_supported(m) and m.ncon and nsel
+      and int(_constraint._condims_static(m)[0]) >= 2
+  )
+
+
+def forward_lanes(m: Model, d: Data, implicit: bool):
+  """Run the chain on batch ``d``; returns (d_filled, qacc_implicit or None).
+
+  ``d_filled`` carries the kinematics, smooth-dynamics and constraint
+  products, with qacc the constrained acceleration; ``qacc_implicit`` is
+  the acceleration the integrator uses (only when ``implicit``)."""
+  if not supported(m):
+    raise NotImplementedError(
+        'the fused step covers Euler/implicit integrators, joint actuators, '
+        'no sensors and contact selection with condim >= 2'
+    )
+  lay = _constraint.layout_cached(m)
+  n_struct = lay.n_eq + lay.n_fri + lay.n_lim
+  kind_s = lay.kind[:n_struct]
+  kernel_iters = max(min(m.opt.iterations, 6), 1)
+  ls_eff = max(min(m.opt.ls_iterations, 6), 1)
+  nv, nu = m.nv, m.nu
+  B = d.qpos.shape[0]
+  T = lambda a: a.movedim(0, -1)  # batch-major → lanes
+  mv = lambda a: a.movedim(-1, 0)  # lanes → batch-major
+
+  qpos_l, qvel_l = T(d.qpos), T(d.qvel)
+  kout = _lkin.kinematics_lanes(m, _lkin.gather_kin(m, qpos_l))
+  sl = _ls.gather_smooth(m, qpos_l, qvel_l, T(d.ctrl), T(d.qfrc_applied),
+                         T(d.xfrc_applied), kout)
+  (qM_l, cvel_l, bias_l, pass_l, af_l, qact_l, qsm_l, qaccsm_l) = (
+      _ls.smooth_lanes(m, sl))
+  lv = _constraint.gather_leaves(m, qpos_l, qvel_l, kout.cdof,
+                                 kout.cdof_anchor, kout.geom_xpos,
+                                 kout.geom_xmat)
+  (J_s, aref_s, D_s, fl_s, dist_bm, U, arefU, D_c, naxes) = (
+      _lanes.assemble_lanes(m, lv))
+  xt, force_l, qft_l = _lk.newton_lanes_pyr_t(
+      kernel_iters, ls_eff, kind_s, qM_l.contiguous(), qaccsm_l.contiguous(),
+      T(d.qacc).contiguous(), J_s, aref_s, D_s, fl_s, U, arefU, D_c, naxes,
+  )
+  # containment: an env whose solve went non-finite falls back to its
+  # unconstrained acceleration (MuJoCo's mjWARN_BADQACC counterpart)
+  ok = (torch.all(torch.isfinite(xt), dim=0)
+        & torch.all(torch.isfinite(qft_l), dim=0))[None]
+  xt = torch.where(ok, xt, qaccsm_l)
+  force_l = torch.where(ok, force_l, torch.zeros_like(force_l))
+  qft_l = torch.where(ok, qft_l, torch.zeros_like(qft_l))
+
+  qit = None
+  if implicit:
+    euler_nodamp = (m.opt.integrator == IntegratorType.EULER
+                    and bool(m.opt.disableflags & _DSBL_EULERDAMP))
+    if euler_nodamp:
+      qit = xt
+    else:
+      # M + h·(diag(damping) − momentᵀ·dgain·moment); for the joint
+      # transmissions admitted here the actuator term is diagonal:
+      # gear²·dgain at each actuated dof
+      diag = sl.dof_damping.expand(nv, B)
+      if m.opt.integrator == IntegratorType.IMPLICITFAST and nu:
+        dgain = sl.gainprm[:, 2] * sl.ctrl + sl.biasprm[:, 2]  # (nu, B)
+        gear0 = sl.gear[:, 0]
+        onehot_vu = statics.table(m, 'onehot_vu', lambda: _ls.onehot_vu(m),
+                                  diag.device, diag.dtype)
+        diag = diag - torch.tensordot(onehot_vu, gear0 * (dgain * gear0),
+                                      dims=1)
+      eye = torch.eye(nv, dtype=qM_l.dtype, device=qM_l.device)[:, :, None]
+      MhD = qM_l + eye * (m.opt.timestep * diag)[:, None, :]
+      qit = _lk.spd_solve_lanes(MhD.contiguous(),
+                                (qsm_l + qft_l).contiguous())
+    qit = mv(qit)
+
+  d = d.replace(
+      xpos=mv(kout.xpos), xquat=mv(kout.xquat), xmat=mv(kout.xmat),
+      xipos=mv(kout.xipos), ximat=mv(kout.ximat),
+      geom_xpos=mv(kout.geom_xpos), geom_xmat=mv(kout.geom_xmat),
+      site_xpos=mv(kout.site_xpos), site_xmat=mv(kout.site_xmat),
+      subtree_com=mv(kout.subtree_com), cdof=mv(kout.cdof),
+      cdof_anchor=mv(kout.cdof_anchor),
+      qM=mv(qM_l), cvel=mv(cvel_l), qfrc_bias=mv(bias_l),
+      qfrc_passive=mv(pass_l), actuator_force=mv(af_l),
+      qfrc_actuator=mv(qact_l), qfrc_smooth=mv(qsm_l),
+      qacc_smooth=mv(qaccsm_l), qacc=mv(xt), qfrc_constraint=mv(qft_l),
+      efc_force=mv(force_l),
+      contact=dataclasses.replace(d.contact, dist=dist_bm),
+  )
+  return d, qit

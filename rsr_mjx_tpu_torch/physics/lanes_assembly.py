@@ -1,0 +1,240 @@
+"""Constraint assembly with the batch in the trailing axis.
+
+Counterpart of ``rsr_mjx_tpu/physics/lanes_assembly.py``, on the path the
+cube-push step takes: ``assemble_lanes(basis=True, dyn_lanes=True)`` with
+top-k contact selection through kernel K2 (``contact_select_lanes``).  It
+returns the structured rows [equality | dof friction | joint limits] as a
+(J, aref, D, floss) block and the selected contacts as the pyramid BASIS
+U = [Jn | μ₁A₁ | …] with per-basis aref and per-contact D, which kernel K3
+consumes.
+
+The per-row expansion without a basis (the generic Newton kernel K4, Go2)
+and the domain-randomised selection branch come with later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rsr_mjx_tpu_torch.physics import constraint as C
+from rsr_mjx_tpu_torch.physics import linalg_kernels as _lk
+from rsr_mjx_tpu_torch.physics import statics
+from rsr_mjx_tpu_torch.physics.types import EqType, Model
+
+_MJ_MINVAL = C._MJ_MINVAL
+
+
+def _pair_slot0(m: Model) -> np.ndarray:
+  """Static first-slot id of each collision pair (slot order)."""
+  out = [off + np.arange(P) * k for _, P, k, off in C.pair_groups(m)]
+  return np.concatenate(out) if out else np.zeros((0,), np.int64)
+
+
+def _limit_pattern(m: Model, lim_j: np.ndarray) -> np.ndarray:
+  """Static Jacobian (nv, 2L) of the interleaved lo/hi limit rows."""
+  pattern = np.zeros((m.nv, 2 * len(lim_j)), np.float32)
+  for i, v in enumerate(m.jnt_dofadr[lim_j]):
+    pattern[v, 2 * i] = 1.0
+    pattern[v, 2 * i + 1] = -1.0
+  return pattern
+
+
+def assemble_lanes(m: Model, lv: C.AssembleLeaves):
+  """Narrow phase + assembly over a batch, contact basis form.
+
+  The six dynamic leaves of ``lv`` (qpos, qvel, cdof, cdof_anchor,
+  geom_xpos, geom_xmat) are lanes tensors (…, B); the model leaves carry no
+  batch axis.  Requires contact selection (``m.ncon_sel``) with uniform
+  condim ≥ 2.  Returns (J_s (nv, Rs, B), aref_s, D_s, floss_s (Rs, B),
+  dist (B, ncon), U (nv, (naxes+1)·nsel, B), arefU ((naxes+1)·nsel, B),
+  D_c (nsel, B), naxes).
+  """
+  lay = C.layout_cached(m)
+  nv = m.nv
+  nsel = C._selection_size(m)
+  if not (m.ncon and nsel):
+    raise ValueError('basis assembly requires contacts and ncon_sel')
+  cd0 = int(C._condims_static(m)[0])
+  if cd0 < 2:
+    raise ValueError('basis assembly requires condim >= 2')
+  qpos, qvel = lv.qpos, lv.qvel  # (nq, B), (nv, B)
+  B = qpos.shape[-1]
+  dtype, dev = qpos.dtype, qpos.device
+  e = lambda x: x[..., None]  # unbatched model leaf → trailing axis 1
+  bc = lambda x: x.expand(x.shape[:-1] + (B,))
+  inv0 = e(lv.dof_invweight0)  # (nv, 1)
+  zrow = lambda r: torch.zeros((r, B), dtype=dtype, device=dev)
+  const = lambda name, build, dt=None: statics.table(m, name, build, dev, dt)
+
+  J_blocks, pos_blocks, sr_blocks, si_blocks = [], [], [], []
+  diagA_blocks, floss_blocks, margin_blocks = [], [], []
+
+  # ---- equality (JOINT)
+  for q in range(m.neq):
+    if int(m.eq_type[q]) != EqType.JOINT:
+      raise NotImplementedError('connect/weld equality not yet implemented')
+    j1, j2 = int(m.eq_obj1id[q]), int(m.eq_obj2id[q])
+    q1adr, v1adr = int(m.jnt_qposadr[j1]), int(m.jnt_dofadr[j1])
+    data = lv.eq_data[q]  # (11,)
+    row = torch.zeros((nv, 1, B), dtype=dtype, device=dev)
+    row[v1adr] = 1.0
+    if 0 <= j2 < m.njnt and j2 != j1:
+      q2adr, v2adr = int(m.jnt_qposadr[j2]), int(m.jnt_dofadr[j2])
+      dif = qpos[q2adr] - lv.qpos0[q2adr]  # (B,)
+      poly = (data[0] + data[1] * dif + data[2] * dif**2 + data[3] * dif**3
+              + data[4] * dif**4)
+      dpoly = (data[1] + 2 * data[2] * dif + 3 * data[3] * dif**2
+               + 4 * data[4] * dif**3)
+      pos = (qpos[q1adr] - lv.qpos0[q1adr]) - poly
+      row[v2adr] = row[v2adr] - dpoly[None, :]
+      diagA = (inv0[v1adr] + inv0[v2adr]).expand(B)
+    else:
+      pos = qpos[q1adr] - lv.qpos0[q1adr] - data[0]
+      diagA = inv0[v1adr].expand(B)
+    J_blocks.append(row)
+    pos_blocks.append(pos[None])
+    sr_blocks.append(bc(e(lv.eq_solref[q]))[None])
+    si_blocks.append(bc(e(lv.eq_solimp[q]))[None])
+    diagA_blocks.append(diagA[None])
+    floss_blocks.append(zrow(1))
+    margin_blocks.append(zrow(1))
+
+  # ---- dof friction loss
+  J_blocks.append(torch.eye(nv, dtype=dtype, device=dev)[:, :, None]
+                  .expand(nv, nv, B))
+  pos_blocks.append(zrow(nv))
+  sr_blocks.append(bc(e(lv.dof_solref)))
+  si_blocks.append(bc(e(lv.dof_solimp)))
+  diagA_blocks.append(bc(inv0))
+  floss_blocks.append(bc(e(lv.dof_frictionloss)))
+  margin_blocks.append(zrow(nv))
+
+  # ---- joint limits (interleaved lo/hi rows per limited joint)
+  lim_j = np.nonzero(m.jnt_limited != 0)[0]
+  L = len(lim_j)
+  if L:
+    qadr = const('limit_qadr', lambda: m.jnt_qposadr[lim_j], torch.long)
+    vadr = const('limit_vadr', lambda: m.jnt_dofadr[lim_j], torch.long)
+    lim_t = const('limit_jnt', lambda: lim_j, torch.long)
+    J_blocks.append(const('limit_pattern', lambda: _limit_pattern(m, lim_j),
+                          dtype)[:, :, None].expand(nv, 2 * L, B))
+    q = qpos[qadr]  # (L, B)
+    lo = e(lv.jnt_range[lim_t, 0])
+    hi = e(lv.jnt_range[lim_t, 1])
+    pos_blocks.append(torch.stack([q - lo, hi - q], dim=1).reshape(2 * L, B))
+    rep2 = lambda x: torch.repeat_interleave(x, 2, dim=0)
+    sr_blocks.append(bc(e(rep2(lv.jnt_solref[lim_t]))))
+    si_blocks.append(bc(e(rep2(lv.jnt_solimp[lim_t]))))
+    diagA_blocks.append(bc(rep2(inv0[vadr])))
+    floss_blocks.append(zrow(2 * L))
+    margin_blocks.append(bc(e(rep2(lv.jnt_margin[lim_t]))))
+
+  # ---- contacts: narrow phase, then the top-nsel selection (kernel K2)
+  dist_l, pos_l, frame_l = C.narrowphase_leaves(m, lv)
+  dist_bm = dist_l.transpose(0, 1)  # (B, ncon)
+  feat_dyn = torch.cat(
+      [dist_l[:, None], pos_l, frame_l.reshape(m.ncon, 9, B)], dim=1
+  ).contiguous()  # (ncon, 13, B)
+  nFd = feat_dyn.shape[1]
+  slot0 = const('pair_slot0', lambda: _pair_slot0(m), torch.long)
+  feat_st = torch.cat([lv.con_friction, lv.con_solref, lv.con_solimp,
+                       lv.con_invweight[:, None]], dim=1)  # (ncon, 13)
+  dmask_all = const('contact_dmask', lambda: C.contact_dmask(m),
+                    dtype)  # (ncon, nv)
+  ptab = torch.cat([feat_st[slot0], dmask_all[slot0]], dim=1).contiguous()
+  pair_struct = tuple((P, k, off) for _, P, k, off in C.pair_groups(m))
+  sel = _lk.contact_select_lanes(pair_struct, nsel, dist_l.contiguous(),
+                                 feat_dyn, ptab)  # (nsel, 13 + 13 + nv, B)
+
+  c_dist = sel[:, 0]  # (nc, B)
+  c_pos = sel[:, 1:4]  # (nc, 3, B)
+  c_frame = sel[:, 4:13]  # (nc, 9, B)
+  sel_st = sel[:, nFd : nFd + 13]
+  c_friction = sel_st[:, 0:5]
+  c_solref = sel_st[:, 5:7]
+  c_solimp = sel_st[:, 7:12]
+  c_invw = sel_st[:, 12]
+  dmask = sel[:, nFd + 13 : nFd + 13 + nv]  # (nc, nv, B)
+
+  ang = [lv.cdof[:, k] for k in range(3)]  # each (nv, B)
+  lin = [lv.cdof[:, 3 + k] for k in range(3)]
+  anch = lv.cdof_anchor  # (nv, 3, B)
+
+  def contract(jac, vec9, off):
+    """Σ_k jac[k] * frame component (off + k); jac[k] (nc, nv, B)."""
+    return sum(jac[k] * vec9[:, off + k][:, None, :] for k in range(3))
+
+  jac_p, jac_r = [], []
+  for k in range(3):
+    relk2 = c_pos[:, (k + 2) % 3][:, None, :] - anch[:, (k + 2) % 3][None]
+    relk1 = c_pos[:, (k + 1) % 3][:, None, :] - anch[:, (k + 1) % 3][None]
+    jac_t = (lin[k][None] + ang[(k + 1) % 3][None] * relk2
+             - ang[(k + 2) % 3][None] * relk1)  # (nc, nv, B)
+    jac_p.append(jac_t * dmask)
+    jac_r.append(ang[k][None] * dmask)
+
+  Jn = contract(jac_p, c_frame, 0)  # (nc, nv, B)
+  nf = cd0 - 1
+  axes = [
+      contract(jac_p, c_frame, 3),  # t1
+      contract(jac_p, c_frame, 6),  # t2
+      contract(jac_r, c_frame, 0),  # torsion
+      contract(jac_r, c_frame, 3),  # roll1
+      contract(jac_r, c_frame, 6),  # roll2
+  ][:nf]
+  U_parts = [Jn.transpose(0, 1)]  # (nv, nc, B)
+  velU = [torch.sum(Jn * qvel[None], dim=1)]  # (nc, B)
+  for i in range(nf):
+    Ai = c_friction[:, i][:, None, :] * axes[i]  # μᵢAᵢ
+    U_parts.append(Ai.transpose(0, 1))
+    velU.append(torch.sum(Ai * qvel[None], dim=1))
+  U_basis = torch.cat(U_parts, dim=1).contiguous()  # (nv, (nf+1)·nc, B)
+  imp_c = C._impedance(c_solimp, c_dist)
+  kk_c, bb_c = C._kbi(c_solref, c_solimp[:, 1])
+  mu0 = c_friction[:, 0]
+  diagA_c = (c_invw * 2.0 * torch.clamp(mu0 * mu0, min=_MJ_MINVAL)
+             / m.opt.impratio)
+  Rreg_c = torch.clamp(
+      (1.0 - imp_c) / torch.clamp(imp_c, min=_MJ_MINVAL) * diagA_c,
+      min=_MJ_MINVAL,
+  )
+  sep_c = c_dist >= 0.0
+  zero = torch.zeros((), dtype=dtype, device=dev)
+  D_c = torch.where(sep_c, zero, 1.0 / Rreg_c)
+  aref_n = torch.where(sep_c, zero, -bb_c * velU[0] - kk_c * imp_c * c_dist)
+  arefU = torch.cat(
+      [aref_n] + [torch.where(sep_c, zero, -bb_c * v) for v in velU[1:]],
+      dim=0,
+  )
+
+  # ---- structured rows: impedance, aref, D
+  J = torch.cat(J_blocks, dim=1)  # (nv, Rs, B)
+  pos = torch.cat(pos_blocks, dim=0)  # (Rs, B)
+  sr = torch.cat(sr_blocks, dim=0)  # (Rs, 2, B)
+  si = torch.cat(si_blocks, dim=0)  # (Rs, 5, B)
+  diagA = torch.cat(diagA_blocks, dim=0)
+  floss = torch.cat(floss_blocks, dim=0)
+  margin = torch.cat(margin_blocks, dim=0)
+  n_struct = lay.n_eq + lay.n_fri + lay.n_lim
+  if J.shape[1] != n_struct:
+    raise AssertionError((J.shape, lay))
+  kind = lay.kind[:n_struct]
+
+  imp = C._impedance(si, pos - margin)
+  kk, bb = C._kbi(sr, si[:, 1])  # dmax = raw solimp[1], as the reference
+  vel = torch.sum(J * qvel[:, None, :], dim=0)  # (Rs, B)
+  aref = -bb * vel - kk * imp * (pos - margin)
+  Rreg = torch.clamp(
+      (1.0 - imp) / torch.clamp(imp, min=_MJ_MINVAL) * diagA, min=_MJ_MINVAL
+  )
+  D = 1.0 / Rreg
+  onesided = const('struct_onesided',
+                   lambda: ((kind == C.LIMIT) | (kind == C.CONTACT))[:, None],
+                   torch.bool)
+  off = onesided & (pos - margin >= 0.0)
+  D = torch.where(off, zero, D)
+  aref = torch.where(off, zero, aref)
+  return (J.contiguous(), aref.contiguous(), D.contiguous(),
+          floss.contiguous(), dist_bm, U_basis, arefU.contiguous(),
+          D_c.contiguous(), nf)

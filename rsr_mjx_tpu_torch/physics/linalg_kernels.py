@@ -1,0 +1,470 @@
+"""The batched small linear algebra of the physics step: three Hopper
+kernels, each beside a plain PyTorch version of the same function.
+
+Counterpart of ``rsr_mjx_tpu/physics/linalg_kernels.py``, whose Pallas TPU
+kernels these replace:
+
+  K1 ``spd_solve_lanes``      ← ``_spd_kernel`` (linalg_kernels.py:103-130)
+  K2 ``contact_select_lanes`` ← ``_select_kernel`` (:377-475)
+  K3 ``newton_lanes_pyr_t``   ← ``_newton_kernel_pyr`` (:500-828)
+
+Each public function keeps the JAX lanes layout (batch in the trailing
+axis) and argument order, so the tests compare like with like.  Dispatch is
+by device and nothing else: a CPU tensor goes through the plain version, a
+CUDA tensor launches the CUDA C++ kernel (``csrc/*.cu``, built at first use
+by ``cuda_build``) or raises.  There is no fallback from the kernel to the
+plain version, to a library call or to the CPU.
+
+Each wrapper counts its kernel launches in ``LAUNCHES[<wrapper name>]``,
+incremented where the kernel is launched and nowhere else.
+
+The kernels take float32; the physics runs in true fp32 (see
+``rsr_mjx_tpu_torch.physics.forward`` for the TF32 switches).  The plain
+versions also take float64, so the CPU path can run as a float64 reference.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from rsr_mjx_tpu_torch.physics import cuda_build
+
+# row kinds (constraint.py); kept here too so this module imports nothing
+# of the assembly
+_FRICTION = 1
+_LIMIT = 2
+_CONTACT = 3
+
+
+# kernel launches of each wrapper; zero them with
+# LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+LAUNCHES = {
+    'spd_solve_lanes': 0,
+    'contact_select_lanes': 0,
+    'newton_lanes_pyr_t': 0,
+}
+
+
+def _check(name: str, t: torch.Tensor, shape, ref: torch.Tensor) -> None:
+  """t has ``shape``, is contiguous and matches ref's device and dtype."""
+  if t.dtype != ref.dtype:
+    raise TypeError(f'{name}: {t.dtype}, expected {ref.dtype}')
+  if tuple(t.shape) != tuple(shape):
+    raise ValueError(f'{name}: shape {tuple(t.shape)} != {tuple(shape)}')
+  if t.device != ref.device:
+    raise ValueError(f'{name}: on {t.device}, expected {ref.device}')
+  if not t.is_contiguous():
+    raise ValueError(f'{name}: must be contiguous')
+
+
+def _route(t: torch.Tensor) -> str:
+  """'plain' for a CPU tensor (float32 or float64), 'cuda' for a float32
+  CUDA tensor; raise otherwise."""
+  if t.device.type == 'cpu':
+    if t.dtype not in (torch.float32, torch.float64):
+      raise TypeError(f'plain version takes float32 or float64, not {t.dtype}')
+    return 'plain'
+  if t.device.type == 'cuda':
+    if t.dtype != torch.float32:
+      raise TypeError(f'kernel takes float32, not {t.dtype}')
+    return 'cuda'
+  raise ValueError(f'no kernel for device {t.device}')
+
+
+def _launch(lib: str, *args) -> None:
+  err = cuda_build.kernel(lib)(*args)
+  if err:
+    raise RuntimeError(f'{lib} kernel launch failed: CUDA error {err}')
+
+
+def _stream() -> int:
+  return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# In-place batched Cholesky + solve in lanes layout (plain versions).
+#
+# The TPU kernel's right-looking outer-product form: column j is one rsqrt
+# of the pivot (clamped at eps) and one rank-1 update of the matrix.
+# ---------------------------------------------------------------------------
+
+
+def _chol_cols(H: torch.Tensor, eps: float):
+  """H (n, n, B) → (cols, djs): cols[j] column j of L as (n, B), zero above
+  the diagonal; djs[j] = L[j, j] as (1, B)."""
+  n = H.shape[0]
+  rows = torch.arange(n, device=H.device)[:, None]
+  S = H
+  cols, djs = [], []
+  for j in range(n):
+    Sj = S[j]
+    dj2 = torch.clamp(Sj[j : j + 1], min=eps)
+    inv = torch.rsqrt(dj2)
+    c = Sj * inv * (rows >= j).to(H.dtype)
+    cols.append(c)
+    djs.append(dj2 * inv)
+    if j < n - 1:
+      S = S - c[None, :, :] * c[:, None, :]
+  return cols, djs
+
+
+def _cho_solve_cols(cols, djs, b: torch.Tensor) -> torch.Tensor:
+  """Solve L Lᵀ x = b from the column factor; b, x (n, B)."""
+  n = b.shape[0]
+  g = b
+  ys = []
+  for j in range(n):
+    yj = g[j : j + 1] / djs[j]
+    ys.append(yj)
+    g = g - cols[j] * yj
+  x = torch.zeros_like(b)
+  for j in range(n - 1, -1, -1):
+    t = torch.sum(cols[j] * x, dim=0, keepdim=True)
+    x = x.clone()
+    x[j : j + 1] = (ys[j] - t) / djs[j]
+  return x
+
+
+# ---------------------------------------------------------------------------
+# K1 — batched SPD solve x = A⁻¹ b.
+#
+# Replaces _spd_kernel / spd_solve_lanes (rsr_mjx_tpu linalg_kernels.py:103).
+# Bound on the H100: bytes.  At n = 20, B = 2048 it reads 3.4 MB and writes
+# 0.16 MB (≈ 1.1 µs at 3.35 TB/s) against ≈ 2n³/3 + 2n² ≈ 6.1 kFLOP per
+# env (12.5 MFLOP in all, 0.2 µs at 67 TFLOP/s fp32).  Design: one warp
+# per env, its matrix in shared memory, lanes over rows for each column
+# update and the triangular solves; no padding (the TPU's 128-lane blocks
+# padded with identity systems have no counterpart).
+# ---------------------------------------------------------------------------
+
+
+def spd_solve_plain(At: torch.Tensor, bt: torch.Tensor,
+                    eps: float = 1e-12) -> torch.Tensor:
+  """Plain version of K1: A (n, n, B), b (n, B) → x (n, B)."""
+  cols, djs = _chol_cols(At, eps)
+  return _cho_solve_cols(cols, djs, bt)
+
+
+def spd_solve_lanes(At: torch.Tensor, bt: torch.Tensor,
+                    eps: float = 1e-12) -> torch.Tensor:
+  """Lanes-layout batched SPD solve; A (n, n, B), b (n, B) → x (n, B)."""
+  n, B = bt.shape
+  _check('b', bt, (n, B), bt)
+  _check('A', At, (n, n, B), bt)
+  if _route(bt) == 'plain':
+    return spd_solve_plain(At, bt, eps)
+  if n > 32:
+    raise ValueError(f'spd_solve_lanes kernel takes n <= 32, got {n}')
+  x = torch.empty_like(bt)
+  LAUNCHES['spd_solve_lanes'] += 1
+  _launch('spd_solve', At.data_ptr(), bt.data_ptr(), x.data_ptr(), n, B,
+          float(eps), _stream())
+  return x
+
+
+# ---------------------------------------------------------------------------
+# K2 — top-nsel contact selection with feature gather.
+#
+# Replaces _select_kernel / contact_select_lanes (linalg_kernels.py:377).
+# Selects the nsel slots of smallest dist in lax.top_k order: ascending
+# dist, ties to the LOWEST slot index (a parallel argmin that ignored the
+# index would pick other slots, since most of the 480 slots tie or
+# near-tie far from contact).  Each pick gathers the slot's dynamic
+# features and its pair's static row (pair = slot // slots_per_pair within
+# its group, where the TPU kernel reduced a one-hot at pair level).
+# Bound on the H100: bytes.  Design: one block per env; dist in shared
+# memory, nsel block-wide (min dist, min index) reductions, each pick
+# gathered as it is made.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _slot_pair(pair_struct: tuple, device: torch.device) -> torch.Tensor:
+  """Static slot → pair-row map (ncon,) int32 for ((P, k, off), ...), made
+  on ``device`` once."""
+  out, base = [], 0
+  for P, k, off in pair_struct:
+    out.append(base + np.arange(P * k) // k)
+    base += P
+  return torch.tensor(np.concatenate(out), dtype=torch.int32, device=device)
+
+
+def contact_select_plain(pair_struct: tuple, nsel: int, dist_l, feat_dyn,
+                         pair_table) -> torch.Tensor:
+  """Plain version of K2.  dist_l (ncon, B), feat_dyn (ncon, Fd, B),
+  pair_table (Ptot, nst) → sel (nsel, Fd + nst, B)."""
+  ncon, Fd, B = feat_dyn.shape
+  # ascending dist, lowest index on ties: a stable sort keeps index order
+  idx = torch.sort(dist_l, dim=0, stable=True).indices[:nsel]  # (nsel, B)
+  dyn = torch.gather(
+      feat_dyn, 0, idx[:, None, :].expand(nsel, Fd, B)
+  )  # (nsel, Fd, B)
+  pair = _slot_pair(pair_struct, idx.device).long()[idx]  # (nsel, B)
+  st = pair_table[pair].permute(0, 2, 1)  # (nsel, nst, B)
+  return torch.cat([dyn, st], dim=1)
+
+
+def contact_select_lanes(pair_struct: tuple, nsel: int, dist_l: torch.Tensor,
+                         feat_dyn: torch.Tensor,
+                         pair_table: torch.Tensor) -> torch.Tensor:
+  """Top-nsel contact selection and feature gather.
+
+  dist_l (ncon, B); feat_dyn (ncon, Fd, B) per-slot dynamic features;
+  pair_table (Ptot, nst) static per-pair columns; pair_struct = static
+  ((P, k, off), ...) slot layout of the pair groups.  Returns
+  sel (nsel, Fd + nst, B): row j = features of the j-th nearest slot."""
+  ncon, Fd, B = feat_dyn.shape
+  dev = dist_l.device
+  Ptot, nst = pair_table.shape
+  _check('feat_dyn', feat_dyn, (ncon, Fd, B), dist_l)
+  _check('dist_l', dist_l, (ncon, B), dist_l)
+  _check('pair_table', pair_table, (Ptot, nst), dist_l)
+  if sum(P * k for P, k, _ in pair_struct) != ncon:
+    raise ValueError('pair_struct does not cover the ncon slots')
+  if not 0 < nsel <= ncon:
+    raise ValueError(f'nsel {nsel} out of range for ncon {ncon}')
+  if _route(dist_l) == 'plain':
+    return contact_select_plain(pair_struct, nsel, dist_l, feat_dyn,
+                                pair_table)
+  slot_pair = _slot_pair(pair_struct, dev)
+  out = torch.empty((nsel, Fd + nst, B), dtype=torch.float32, device=dev)
+  LAUNCHES['contact_select_lanes'] += 1
+  _launch('contact_select', dist_l.data_ptr(), feat_dyn.data_ptr(),
+          pair_table.data_ptr(), slot_pair.data_ptr(), out.data_ptr(),
+          ncon, Fd, nsel, nst, B, _stream())
+  return out
+
+
+# ---------------------------------------------------------------------------
+# K3 — pyramid-basis fixed-iteration Newton solve.
+#
+# Replaces _newton_kernel_pyr / newton_lanes_pyr_t (linalg_kernels.py:500).
+# Solves  min_x ½(x−a0)ᵀM(x−a0) + Σᵢ sᵢ(Jᵢx − arefᵢ)  per env with MuJoCo's
+# soft-constraint penalties: structured rows [equality | dof friction |
+# limits] through the generic row penalty, contact rows through the
+# pyramid basis U = [Jn | μ₁A₁ | …] with the one-sided quadratic.  Fixed
+# schedule (iters Newton × ls_iters line-search steps), Tikhonov term
+# 1e-6·max diag(H) + 1e-12, pivot clamp 1e-12 with rsqrt, t clipped to
+# [0, 4], monotone accept only when Δφ < 0 (so a NaN step is rejected).
+# Bound on the H100: fp32 operations outside the tensor cores.  Per env
+# and iteration the Hessian alone is nv(nv+1)/2 · (Rs + (naxes+1)·C) MACs
+# (210 · 133 on cube-push); the inputs are ≈ 12 KB per env.  Design: one
+# block per env, J, U, W, M and H in shared memory, threads over rows for
+# the matvecs and over the (a ≥ b) pairs for the Hessian, the Cholesky
+# serial over columns with threads over rows, both loops inside the
+# kernel.  Rows are not padded (the TPU's 8-row tiles have no counterpart).
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _row_masks(kinds: tuple, device: torch.device, dtype: torch.dtype):
+  """Row masks (Rs,) of the static kinds on ``device``, made once: one-sided
+  rows (limits, contacts) and dof-friction rows."""
+  kind_s = np.asarray(kinds)
+  onesided = (kind_s == _LIMIT) | (kind_s == _CONTACT)
+  fric = kind_s == _FRICTION
+  return (torch.tensor(onesided, device=device, dtype=dtype),
+          torch.tensor(fric, device=device, dtype=dtype))
+
+
+def _penalty_se(r, D, floss, ones_m, fric_m):
+  """(ŝ', ŝ'') of the piecewise row penalties, all (R, B)."""
+  zero = torch.zeros((), dtype=r.dtype, device=r.device)
+  grad_q = D * r
+  active = (r < 0) | (ones_m <= 0)
+  lim = torch.where(fric_m > 0, floss, torch.full_like(floss, 1e30))
+  in_quad = torch.abs(grad_q) <= lim
+  s_grad = torch.where(in_quad, grad_q, torch.sign(r) * lim)
+  s_curv = torch.where(in_quad, D, zero)
+  s_grad = torch.where(active, s_grad, zero)
+  s_curv = torch.where(active, s_curv, zero)
+  inert = (fric_m > 0) & (floss <= 0)
+  return torch.where(inert, zero, s_grad), torch.where(inert, zero, s_curv)
+
+
+def _penalty_cost_rows(r, D, floss, ones_m, fric_m):
+  """Per-row penalty cost sᵢ(rᵢ), (R, B)."""
+  zero = torch.zeros((), dtype=r.dtype, device=r.device)
+  active = (r < 0) | (ones_m <= 0)
+  quad = 0.5 * D * r * r
+  lim = torch.where(fric_m > 0, floss, torch.full_like(floss, 1e30))
+  in_quad = torch.abs(D * r) <= lim
+  tail = floss * torch.abs(r) - 0.5 * floss * floss / torch.clamp(D, min=1e-12)
+  cost = torch.where(in_quad, quad, tail)
+  cost = torch.where(active, cost, zero)
+  return torch.where((fric_m > 0) & (floss <= 0), zero, cost)
+
+
+def newton_pyr_plain(iterations: int, ls_iterations: int, kind_s, Mt, a0t,
+                     x0t, Js, arefs, Ds, fls, U, arefU, Dc, naxes: int):
+  """Plain version of K3; same arguments and outputs as
+  :func:`newton_lanes_pyr_t`."""
+  nv, Rs, B = Js.shape
+  C = Dc.shape[0]
+  dev = Mt.device
+  ones_m, fric_m = _row_masks(tuple(np.asarray(kind_s).tolist()), dev,
+                              Mt.dtype)
+  ones_m, fric_m = ones_m[:, None], fric_m[:, None]
+  eye = torch.eye(nv, dtype=Mt.dtype, device=dev)[:, :, None]
+  tril = torch.tril(torch.ones(nv, nv, dtype=torch.bool, device=dev))
+
+  mv = lambda A, v: torch.sum(A * v[:, None, :], dim=0)  # (nv,R,B),(nv,B)
+  mvT = lambda A, s: torch.sum(A * s[None, :, :], dim=1)  # → (nv, B)
+  matvec_M = lambda v: torch.sum(Mt * v[None, :, :], dim=1)
+  bsum = lambda a: torch.sum(a, dim=0, keepdim=True)
+
+  def con_se(r):
+    act = (r < 0).to(r.dtype)
+    return Dc * r * act, Dc * act
+
+  blk = lambda a, k: a[k * C : (k + 1) * C]
+  x = x0t
+  rs = mv(Js, x) - arefs
+  rU = mv(U, x) - arefU
+
+  for _ in range(iterations):
+    sg_s, sc_s = _penalty_se(rs, Ds, fls, ones_m, fric_m)
+    rho_n = blk(rU, 0)
+    sgp, sgm, scp, scm = [], [], [], []
+    for i in range(naxes):
+      rho_i = blk(rU, 1 + i)
+      g, c = con_se(rho_n + rho_i)
+      sgp.append(g)
+      scp.append(c)
+      g, c = con_se(rho_n - rho_i)
+      sgm.append(g)
+      scm.append(c)
+    w = torch.cat([sum(p + q for p, q in zip(sgp, sgm))]
+                  + [p - q for p, q in zip(sgp, sgm)], dim=0)
+    xa = x - a0t
+    grad = matvec_M(xa) + mvT(Js, sg_s) + mvT(U, w)
+
+    S00 = sum(p + q for p, q in zip(scp, scm))
+    Un = U[:, 0:C]
+    Wn = S00[None] * Un
+    Wi = []
+    for i in range(naxes):
+      Ui = U[:, (1 + i) * C : (2 + i) * C]
+      S0i = scp[i] - scm[i]
+      Sii = scp[i] + scm[i]
+      Wn = Wn + S0i[None] * Ui
+      Wi.append(S0i[None] * Un + Sii[None] * Ui)
+    Wmat = torch.cat([Wn] + Wi, dim=1)  # (nv, NU, B)
+    # H[a, b] = Σ_r J[a,r] c_r J[b,r] + Σ_k W[a,k] U[b,k], taken from the
+    # lower triangle (b ≥ a) and mirrored as the TPU kernel does
+    P_s = Js * sc_s[None]
+    T = (torch.einsum('arb,crb->acb', Js, P_s)
+         + torch.einsum('akb,ckb->acb', Wmat, U))
+    T = torch.where(tril.T[:, :, None], T, torch.zeros_like(T))
+    H = T + T.transpose(0, 1) - eye * T + Mt
+    dmax = torch.amax(H * eye, dim=(0, 1), keepdim=True)
+    H = H + eye * (1e-6 * dmax + 1e-12)
+    cols, djs = _chol_cols(H, 1e-12)
+    dx = -_cho_solve_cols(cols, djs, grad)
+
+    mdx = matvec_M(dx)
+    jdx_s = mv(Js, dx)
+    u = mv(U, dx)
+    un = u[0:C]
+    g0 = bsum(xa * mdx)
+    h0 = bsum(dx * mdx)
+    t = torch.ones_like(g0)
+    for _ in range(ls_iterations):
+      sg, sc = _penalty_se(rs + t * jdx_s, Ds, fls, ones_m, fric_m)
+      dphi = g0 + t * h0 + bsum(sg * jdx_s)
+      ddphi = h0 + bsum(sc * jdx_s * jdx_s)
+      rtn = rho_n + t * un
+      for i in range(naxes):
+        ui = blk(u, 1 + i)
+        rti = blk(rU, 1 + i) + t * ui
+        jp, jm = un + ui, un - ui
+        gp, cp = con_se(rtn + rti)
+        gm, cm = con_se(rtn - rti)
+        dphi = dphi + bsum(gp * jp + gm * jm)
+        ddphi = ddphi + bsum(cp * jp * jp + cm * jm * jm)
+      t = torch.clamp(t - dphi / torch.clamp(ddphi, min=1e-12), 0.0, 4.0)
+
+    s_old = bsum(_penalty_cost_rows(rs, Ds, fls, ones_m, fric_m))
+    s_new = bsum(_penalty_cost_rows(rs + t * jdx_s, Ds, fls, ones_m, fric_m))
+    rtn = rho_n + t * un
+    for i in range(naxes):
+      ui = blk(u, 1 + i)
+      rho_i = blk(rU, 1 + i)
+      rti = rho_i + t * ui
+      for r_old, r_new in ((rho_n + rho_i, rtn + rti),
+                           (rho_n - rho_i, rtn - rti)):
+        s_old = s_old + bsum(0.5 * Dc * r_old * r_old * (r_old < 0))
+        s_new = s_new + bsum(0.5 * Dc * r_new * r_new * (r_new < 0))
+    accept = (t * g0 + 0.5 * t * t * h0 + s_new - s_old) < 0
+    x = torch.where(accept, x + t * dx, x)
+    rs = torch.where(accept, rs + t * jdx_s, rs)
+    rU = torch.where(accept, rU + t * u, rU)
+
+  sg_s, _ = _penalty_se(rs, Ds, fls, ones_m, fric_m)
+  rho_n = blk(rU, 0)
+  fc_parts = []
+  wf_n = torch.zeros_like(rho_n)
+  wf_parts = []
+  for i in range(naxes):
+    rho_i = blk(rU, 1 + i)
+    gp, _ = con_se(rho_n + rho_i)
+    gm, _ = con_se(rho_n - rho_i)
+    fc_parts += [-gp, -gm]
+    wf_n = wf_n + (-gp) + (-gm)
+    wf_parts.append((-gp) - (-gm))
+  fs = -sg_s
+  qf = mvT(Js, fs) + mvT(U, torch.cat([wf_n] + wf_parts, dim=0))
+  fc = torch.stack(fc_parts, dim=0).reshape(naxes, 2, C, B)
+  return x, _force_rows(fs, fc), qf
+
+
+def _force_rows(fs, fc):
+  """Structured forces (Rs, B) and contact forces grouped [axis, ±,
+  contact] (naxes, 2, C, B) → rows [structured | contact, axis, ±]."""
+  naxes, _, C, B = fc.shape
+  fc = fc.permute(2, 0, 1, 3).reshape(C * 2 * naxes, B)
+  return torch.cat([fs, fc], dim=0)
+
+
+def newton_lanes_pyr_t(iterations: int, ls_iterations: int,
+                       kind_s: np.ndarray, Mt, a0t, x0t, Js, arefs, Ds, fls,
+                       U, arefU, Dc, naxes: int):
+  """Pyramid-basis fixed-iteration Newton solve on lanes-layout inputs.
+
+  Mt (nv, nv, B), a0t/x0t (nv, B); structured rows Js (nv, Rs, B) with
+  arefs/Ds/fls (Rs, B) and static kinds ``kind_s`` (Rs,); contact basis
+  U (nv, (naxes+1)·C, B) grouped [Jn | μ₁A₁ | …], arefU likewise, Dc (C, B).
+  Returns (x (nv, B), force (Rs + 2·naxes·C, B) in row order
+  [structured | contact, axis, ±], qfrc (nv, B))."""
+  nv, Rs, B = Js.shape
+  C = Dc.shape[0]
+  NU = (naxes + 1) * C
+  dev = Mt.device
+  for name, t, shape in (
+      ('Mt', Mt, (nv, nv, B)), ('a0t', a0t, (nv, B)), ('x0t', x0t, (nv, B)),
+      ('Js', Js, (nv, Rs, B)), ('arefs', arefs, (Rs, B)), ('Ds', Ds, (Rs, B)),
+      ('fls', fls, (Rs, B)), ('U', U, (nv, NU, B)), ('arefU', arefU, (NU, B)),
+      ('Dc', Dc, (C, B))):
+    _check(name, t, shape, Mt)
+  if len(kind_s) != Rs:
+    raise ValueError(f'kind_s has {len(kind_s)} rows, Js has {Rs}')
+  if _route(Mt) == 'plain':
+    return newton_pyr_plain(iterations, ls_iterations, kind_s, Mt, a0t, x0t,
+                            Js, arefs, Ds, fls, U, arefU, Dc, naxes)
+  if nv > 32:
+    raise ValueError(f'newton_lanes_pyr_t kernel takes nv <= 32, got {nv}')
+  ones_m, fric_m = _row_masks(tuple(np.asarray(kind_s).tolist()), dev,
+                              torch.float32)
+  x = torch.empty((nv, B), dtype=torch.float32, device=dev)
+  fs = torch.empty((Rs, B), dtype=torch.float32, device=dev)
+  fc = torch.empty((naxes, 2, C, B), dtype=torch.float32, device=dev)
+  qf = torch.empty((nv, B), dtype=torch.float32, device=dev)
+  LAUNCHES['newton_lanes_pyr_t'] += 1
+  _launch('newton_pyr', *(a.data_ptr() for a in (
+      Mt, a0t, x0t, Js, arefs, Ds, fls, ones_m, fric_m, U, arefU, Dc,
+      x, fs, fc, qf)), nv, Rs, C, naxes, int(iterations), int(ls_iterations),
+          B, _stream())
+  return x, _force_rows(fs, fc), qf

@@ -3,32 +3,41 @@
     python3 chip_smoke.py
 
 Run from the root of the repository.  It imports the port
-(``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Phases; any failure
-exits non-zero before the result line is printed:
+(``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Two served paths
+are driven, each through ``envs.load`` → ``wrap_for_training`` → ``env.step``
+with a trained policy run deterministically: cube-push
+(``AirbotCubePushTrain``, kernels K1, K2, K3) and the Go2 joystick
+(``Go2JoystickFlatTerrain``, kernels K1, K4).  Phases; any failure exits
+non-zero before the result line is printed:
 
   1. device   a CUDA card is required (no CPU path); print the card's name and
-              power limit; TF32 off; build the CUDA kernels from ``csrc/``.
-  2. kernels  K1 spd_solve_lanes, K2 contact_select_lanes and
-              K3 newton_lanes_pyr_t, each on the inputs the main path gives
-              it (recorded from one control step of the batch), held against
-              its plain PyTorch version on the same inputs, env by env (see
-              check_kernels); K2 also on dist rounded to create exact ties.
-              Times of the kernel, the plain version and, for K1 and K2,
-              one PyTorch library call.
-  3. slice    256 envs of the batch run 3 control steps on the card, on
-              the CPU (plain versions) and on the CPU in float64; the card
-              must be as close to float64 as the CPU's fp32 path is, and
-              agree with the CPU on 4 envs after the first step (see
-              reference()).
-              Then the main path: the trained PPO cube-push policy
-              (logs/cube_ppo_15M_r4/final_params.pkl) run deterministically
-              on 2048 AirbotCubePushTrain envs through the training
-              wrapper stack for 50 control steps (4 physics substeps
-              each).  The kernels' launch counts, zeroed just before, must
-              show K1 twice and K2, K3 once per substep.
-              Then one more control step runs under torch.profiler: wall
-              and device busy time, the device's idle share, the number of
-              device kernels, and the host time of each stage.
+              power limit; TF32 off; build the four CUDA kernels from
+              ``csrc/``.
+  2. kernels  each kernel on the inputs its path gives it (recorded from
+              one control step of the batch), held against its plain
+              PyTorch version on the same inputs, env by env (see
+              check_kernels and check_k4): K1 spd_solve_lanes at nv 20
+              (cube-push) and nv 18 (Go2), K2 contact_select_lanes also on
+              dist rounded to create exact ties, K3 newton_lanes_pyr_t,
+              K4 _newton_lanes_core on the Go2 rows at the Go2 schedule
+              (1 x 5) and at 6 x 6, and on the cube-push model's generic
+              rows (basis off, nv 20) at 6 x 6, where its objective is also
+              held beside K3's.  Times of the kernel, the plain version
+              and, for K1 and K2, one PyTorch library call.
+  3. paths    for each path: 256 envs of the batch run 3 control steps on
+              the card, on the CPU (plain versions) and on the CPU in
+              float64; the card must be as close to float64 as the CPU's
+              fp32 path is (see reference()).  Then the rollout: cube-push
+              20 control steps of 4 substeps at B = 2048, Go2 50 control
+              steps of 5 substeps at B = 8192 (the tuned config's
+              num_envs).  The kernels' launch counts, zeroed just before
+              each rollout, must match the substeps run.  The Go2 rollout
+              also reports the share of envs done and the command-tracking
+              errors over alive steps, and fails if more than 5 % of the
+              envs terminate.  Then one more control step of each path
+              runs under torch.profiler: wall and device busy time, the
+              device's idle share, the number of device kernels, and the
+              host time of each stage.
   4. result   one JSON line of the kernels, the card's name and power limit,
               and last the line {"ok": true, "device": {...}}.
 """
@@ -45,8 +54,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PARAMS = os.path.join(ROOT, 'logs', 'cube_ppo_15M_r4', 'final_params.pkl')
 ENV = 'AirbotCubePushTrain'
 ENVS = 2048  # bench.py's per-chip batch
-STEPS = 50  # control steps of the slice, 4 physics substeps each
+STEPS = 20  # control steps of the cube-push rollout, 4 substeps each
+GO2_PARAMS = os.path.join(ROOT, 'logs', 'go2_joystick_50M_r5',
+                          'final_params.pkl')
+GO2_ENV = 'Go2JoystickFlatTerrain'
+GO2_ENVS = 8192  # num_envs of the tuned joystick config
+GO2_STEPS = 50  # control steps of the Go2 rollout, 5 substeps each
+# a trained policy does not fall within one second: at most this share of
+# the envs may terminate within GO2_STEPS control steps
+GO2_MAX_DONE_SHARE = 0.05
 SEED = 0
+DEV = 'cuda'  # every phase runs on the card
 REF_ENVS = 256  # envs of the batch run also on the CPU, fp32 and float64
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the full 700 W
@@ -65,6 +83,9 @@ KERNELS = {
     'newton_lanes_pyr_t': (
         'K3', 'rsr_mjx_tpu_torch/csrc/newton_pyr.cu',
         'rsr_mjx_tpu/physics/linalg_kernels.py:702'),
+    '_newton_lanes_core': (
+        'K4', 'rsr_mjx_tpu_torch/csrc/newton_generic.cu',
+        'rsr_mjx_tpu/physics/linalg_kernels.py:878'),
 }
 
 
@@ -137,6 +158,23 @@ def k3_work(iters, ls_iters, kind_s, Mt, a0t, x0t, Js, arefs, Ds, fls, U,
   return 4 * (ins + outs), flops
 
 
+def k4_work(kind, iters, ls_iters, Mt, a0t, x0t, Jt, areft, Dt, flt):
+  nv, R, B = Jt.shape
+  ins = (nv * nv + 2 * nv + nv * R + 3 * R) * B + 2 * R
+  outs = (nv + R + nv) * B
+  mv = 2 * nv * (nv + R)  # one product with M and J
+  per_iter = (
+      2 * (nv * (nv + 1) // 2) * R + nv * R  # Hessian triangle, J·diag(c)
+      + mv  # gradient
+      + 2 * nv**3 / 3 + 2 * nv * nv  # Cholesky and solves
+      + mv  # M dx, J dx
+      + ls_iters * 8 * R  # line search
+      + 12 * R  # accept test
+  )
+  flops = B * (2 * nv * R + iters * per_iter + 2 * nv * R)
+  return 4 * (ins + outs), flops
+
+
 def bound_ms(nbytes, flops):
   t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
   return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
@@ -146,7 +184,7 @@ def bound_ms(nbytes, flops):
 
 
 def record_calls(lk, fn):
-  """Run fn() with the three kernel wrappers recording their arguments."""
+  """Run fn() with the kernel wrappers recording their arguments."""
   calls = {name: [] for name in KERNELS}
   real = {name: getattr(lk, name) for name in KERNELS}
 
@@ -224,26 +262,17 @@ def k3_force_scale(torch, args, x):
   return torch.cat([s_rows, s_con], dim=0)
 
 
-def check_kernels(torch, lk, calls):
-  """Phase 2: every kernel against its plain version on recorded inputs.
+def worst(err, tol):
+  return (err / tol).max().item()
 
-  Every check is made env by env, each env against its own scale, so a
-  kernel wrong in any one env fails.  Each criterion is also applied to the
-  plain fp32 version against float64; its worst ratio is printed beside
-  the kernel's (a criterion the plain version fails would be a wrong
-  criterion, not a kernel fault)."""
-  rows = {}
-  f64 = lambda a: a.double() if torch.is_tensor(a) else a
 
-  def worst(err, tol):
-    return (err / tol).max().item()
-
-  # K1, both calls of a substep (smooth qacc, implicit solve): per env
-  # max|k − p| <= 1e-5·max|p| + 1e-6, and the normwise backward error
-  # ‖Ax − b‖ / (‖A‖‖x‖ + ‖b‖), in float64, <= 1e-6 (a Cholesky solve is
-  # backward stable: fp32 gives ~n·eps whatever A's condition number).
+def k1_row(torch, lk, systems):
+  """K1 on each (A, b) of ``systems``: per env max|k − p| <= 1e-5·max|p| +
+  1e-6, and the normwise backward error ‖Ax − b‖ / (‖A‖‖x‖ + ‖b‖), in
+  float64, <= 1e-6 (a Cholesky solve is backward stable: fp32 gives ~n·eps
+  whatever A's condition number).  Times on the last system."""
   err, ratios = 0.0, []
-  for At, bt in calls['spd_solve_lanes'][-2:]:
+  for At, bt in systems:
     xk, xp = lk.spd_solve_lanes(At, bt), lk.spd_solve_plain(At, bt)
     x64 = lk.spd_solve_plain(At.double(), bt.double())
     err = max(err, (xk - xp).abs().max().item())
@@ -257,10 +286,10 @@ def check_kernels(torch, lk, calls):
       ratios.append(worst(eta, torch.full_like(eta, 1e-6)))
     ratios.append(worst(per_env_max(xp.double() - x64),
                         1e-5 * per_env_max(x64) + 1e-6))
-  At, bt = calls['spd_solve_lanes'][-1]
+  At, bt = systems[-1]
   A_bm = At.permute(2, 0, 1).contiguous()
   b_bm = bt.t().contiguous()[..., None]
-  rows['spd_solve_lanes'] = dict(
+  return dict(
       max_abs_err=err, ok=max(ratios) <= 1.0,
       ratios=f'kernel {max(ratios[0::4]):.3g}, kernel backward '
              f'{max(ratios[1::4]):.3g}, plain backward '
@@ -270,8 +299,129 @@ def check_kernels(torch, lk, calls):
       plain_ms=time_ms(torch, lambda: lk.spd_solve_plain(At, bt), 10),
       library_ms=time_ms(torch, lambda: torch.cholesky_solve(
           b_bm, torch.linalg.cholesky(A_bm)), 50),
-      note='per env: |k-p| <= 1e-5*max|p| + 1e-6; backward error <= 1e-6',
+      note=f'n {bt.shape[0]}, B {bt.shape[1]}; per env: |k-p| <= '
+           '1e-5*max|p| + 1e-6; backward error <= 1e-6',
   )
+
+
+def k4_cost(torch, lk, args, x):
+  """The objective K4 minimises, per env, in float64:
+  ½(x−a0)ᵀM(x−a0) + Σ sᵢ(Jᵢx − arefᵢ)."""
+  kind = args[0]
+  Mt, a0t, _, Jt, areft, Dt, flt = (a.double() for a in args[3:])
+  x = x.double()
+  ones_m, fric_m = lk._row_masks(tuple(kind.tolist()), x.device,
+                                 torch.float64)
+  xa = x - a0t
+  phi = 0.5 * (xa * (Mt * xa[None]).sum(1)).sum(0)
+  r = (Jt * x[:, None]).sum(0) - areft
+  return phi + lk._penalty_cost_rows(r, Dt, flt, ones_m[:, None],
+                                     fric_m[:, None]).sum(0)
+
+
+def k4_ratios(torch, lk, args, schedules):
+  """K4 on one system (the arguments of ``_newton_lanes_core``), per env,
+  at each (Newton, line-search) schedule, under K3's criteria:
+   - φ(xk) − φ(x64) <= tol·φ(x0), φ >= 0 in float64, x64 the plain version's
+     result in float64 (x is held by the objective it reaches: fp32
+     rounding moves x along the directions where φ is flat).  tol is 1e-6
+     after several Newton steps, as for K3, and 1e-5 after a single one:
+     there x is not at the minimum, so φ changes to first order with the
+     rounding of the step and of the line-search t (the plain fp32 version
+     is past 1e-6 on the Go2 rows as well);
+   - force: |fk − f(xk)| <= 1024·u·D(Σ|J||xk| + |aref|) row by row, f(xk)
+     the plain version run for 0 steps from xk in float64;
+   - qfrc: |qk − Jᵀfk| <= 64·u·|J|ᵀ|fk|.
+  Returns (max |kernel − plain|, {(who, schedule): (φ, force, qfrc) worst
+  error/tolerance over envs}) for the kernel and the plain fp32 version."""
+  kind = args[0]
+  a64 = [a.double() for a in args[3:]]
+  Jt, areft, Dt = a64[3], a64[4], a64[5]
+  phi0 = k4_cost(torch, lk, args, args[5])
+  err, ratios = 0.0, {}
+  for sched in schedules:
+    x64 = lk.newton_generic_plain(kind, *sched, *a64)[0]
+    phi64 = k4_cost(torch, lk, args, x64)
+    tol_phi = (1e-5 if sched[0] == 1 else 1e-6) * phi0 + 1e-30
+    outs = {'kernel': lk._newton_lanes_core(kind, *sched, *args[3:]),
+            'plain': lk.newton_generic_plain(kind, *sched, *args[3:])}
+    err = max([err] + [(k - p).abs().max().item()
+                       for k, p in zip(outs['kernel'], outs['plain'])])
+    for who, out in outs.items():
+      x, force, qfrc = (o.double() for o in out)
+      f_x = lk.newton_generic_plain(kind, 0, sched[1], a64[0], a64[1], x,
+                                    *a64[3:])[1]
+      tol_f = 1024 * U32 * Dt * ((Jt.abs() * x.abs()[:, None]).sum(0)
+                                 + areft.abs()) + 1e-30
+      proj = (Jt * force[None]).sum(1)
+      tol_q = 64 * U32 * (Jt.abs() * force.abs()[None]).sum(1) + 1e-30
+      ratios[who, sched] = (
+          worst(k4_cost(torch, lk, args, x) - phi64, tol_phi),
+          worst((force - f_x).abs(), tol_f),
+          worst((qfrc - proj).abs(), tol_q))
+  return err, ratios
+
+
+def fmt_ratios(ratios):
+  return 'phi/force/qfrc ' + ', '.join(
+      f'{who} {it} x {ls} ' + '/'.join(f'{v:.3g}' for v in r)
+      for (who, (it, ls)), r in ratios.items())
+
+
+def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
+  """K4 on the Go2 rows of one substep (at the path's schedule and at
+  6 x 6) and on the cube-push model's generic rows (6 x 6).  On the cube
+  rows it also prints how far K4's objective is from K3's on the same
+  states: both minimise the same φ."""
+  sched = (go2_args[1], go2_args[2])
+  err, ratios = k4_ratios(torch, lk, go2_args, [sched, (6, 6)])
+  cerr, cratios = k4_ratios(torch, lk, cube_args, [(6, 6)])
+  log(f'K4 on the cube-push generic rows (nv {cube_args[6].shape[0]}, R0 '
+      f'{cube_args[6].shape[1]}, B {cube_args[6].shape[2]}): max |kernel - '
+      f'plain| {cerr:.3e}; {fmt_ratios(cratios)}')
+  x4 = lk._newton_lanes_core(cube_args[0], 6, 6, *cube_args[3:])[0]
+  x3 = lk.newton_lanes_pyr_t(*cube_k3_args)[0]
+  phi4 = k4_cost(torch, lk, cube_args, x4)
+  phi3 = k4_cost(torch, lk, cube_args, x3)
+  phi0 = k4_cost(torch, lk, cube_args, cube_args[5])
+  gap = ((phi4 - phi3).abs() / (phi0 + 1e-30))
+  log(f'K4 against K3 on the same cube-push states, 6 x 6: '
+      f'|phi(x_K4) - phi(x_K3)| / phi(x0) per env max {gap.max().item():.3g} '
+      f'median {gap.median().item():.3g}')
+  cube_ok = max(max(r) for r in cratios.values()) <= 1.0
+  # the two assemblies pose one problem: the objectives must agree to 1e-4
+  # of the start's in the median env (a handful of envs are ill-conditioned)
+  cube_ok = cube_ok and gap.median().item() <= 1e-4
+  kind = go2_args[0]
+  return dict(
+      max_abs_err=err,
+      ok=max(max(r) for r in ratios.values()) <= 1.0 and cube_ok,
+      ratios=fmt_ratios(ratios) + ('' if cube_ok else ' (cube rows FAIL)'),
+      work=k4_work(*go2_args),
+      ms=time_ms(torch, lambda: lk._newton_lanes_core(*go2_args), 50),
+      plain_ms=time_ms(torch, lambda: lk.newton_generic_plain(*go2_args), 5,
+                       1),
+      library_ms=None,
+      note=f'nv {go2_args[6].shape[0]}, R0 {go2_args[6].shape[1]}, B '
+           f'{go2_args[6].shape[2]}, schedule {sched[0]} x {sched[1]}; per '
+           'env, at each schedule: phi(xk) within 1e-5 (1 Newton step) or '
+           '1e-6 (6 steps) of the float64 solve; force and qfrc those of xk and of the force to fp32 '
+           'rounding (1024u, 64u of their sums)',
+  )
+
+
+def check_kernels(torch, lk, calls):
+  """Phase 2: every kernel against its plain version on recorded inputs.
+
+  Every check is made env by env, each env against its own scale, so a
+  kernel wrong in any one env fails.  Each criterion is also applied to the
+  plain fp32 version against float64; its worst ratio is printed beside
+  the kernel's (a criterion the plain version fails would be a wrong
+  criterion, not a kernel fault)."""
+  rows = {}
+  f64 = lambda a: a.double() if torch.is_tensor(a) else a
+
+  rows['spd_solve_lanes'] = k1_row(torch, lk, calls['spd_solve_lanes'][-2:])
 
   # K2: exact equality, on the recorded dist and on dist with exact ties
   args = calls['contact_select_lanes'][-1]
@@ -353,11 +503,16 @@ def check_kernels(torch, lk, calls):
            'to fp32 rounding (1024u, 64u of their sums)',
   )
 
+  return rows
+
+
+def report(rows):
+  """Print each kernel's row with its bound; fail if a check failed."""
   failed = []
   for name, r in rows.items():
-    short = KERNELS[name][0]
+    short = KERNELS[name][0] + ' ' if name in KERNELS else ''
     r['bound_ms'], r['bound_by'] = bound_ms(*r['work'])
-    log(f'{short} {name}: max |kernel - plain| {r["max_abs_err"]:.3e}; '
+    log(f'{short}{name}: max |kernel - plain| {r["max_abs_err"]:.3e}; '
         f'{r["note"]}; worst error/tolerance over envs: {r["ratios"]} '
         f'{"ok" if r["ok"] else "FAIL"}; kernel_ms {r["ms"]:.5f} '
         f'plain_ms {r["plain_ms"]:.5f} library_ms {r["library_ms"]} '
@@ -366,13 +521,15 @@ def check_kernels(torch, lk, calls):
       failed.append(name)
   if failed:
     raise SystemExit(f'kernel check failed: {failed}')
-  return rows
 
 
-def reference(torch, envs, env_gpu, policy, qpos, qvel, ctrl, steps=3):
-  """The first REF_ENVS envs of the batch, the deterministic policy,
-  ``steps`` control steps (4 substeps each) from the same start: on the
-  card, on the CPU (plain versions) and on the CPU in float64.
+def reference(torch, tag, make_envs, policy, obs_of, policy_obs=None,
+              steps=3):
+  """REF_ENVS envs of a path's batch, the deterministic policy, ``steps``
+  control steps from the same start: on the card, on the CPU (plain
+  versions) and on the CPU in float64.  ``make_envs(device, dtype)`` gives
+  (env, start state); ``obs_of(state)`` the observation compared and
+  ``policy_obs(state)`` the one the policy reads (the same by default).
 
   A few start states are chaotic in fp32: a change of qpos at the level of
   fp32 rounding moves the obs by more than the repo's 1e-2 tolerance within
@@ -381,22 +538,20 @@ def reference(torch, envs, env_gpu, policy, qpos, qvel, ctrl, steps=3):
   every step to float64 as a batch: the median over envs of its obs gap to
   float64 must be within 10x the CPU fp32 path's + 1e-6.  Both gaps to
   float64 are printed after each step (max, median, envs over 1e-3)."""
-  from rsr_mjx_tpu_torch.train import networks
+  import copy
 
   f64 = torch.float64
-  env_cpu = envs.load(ENV, device='cpu')
-  env_64 = envs.load(ENV, device='cpu', dtype=f64)
-  pol_cpu = networks.PPOPolicy(env_cpu.observation_size, env_cpu.action_size)
-  pol_cpu.load_state_dict({k: v.cpu() for k, v in policy.state_dict().items()})
-  s_g = env_gpu.reset_to(qpos, qvel, ctrl)
-  s_c = env_cpu.reset_to(qpos.cpu(), qvel.cpu(), ctrl.cpu())
-  s_d = env_64.reset_to(*(x.cpu().to(f64) for x in (qpos, qvel, ctrl)))
+  env_g, s_g = make_envs(DEV, torch.float32)
+  env_c, s_c = make_envs('cpu', torch.float32)
+  env_d, s_d = make_envs('cpu', f64)
+  pol_cpu = copy.deepcopy(policy).cpu()
+  policy_obs = policy_obs or obs_of
   ok = True
   for step in range(1, steps + 1):
-    s_g = env_gpu.step(s_g, policy(s_g.obs))
-    s_c = env_cpu.step(s_c, pol_cpu(s_c.obs))
-    s_d = env_64.step(s_d, pol_cpu(s_d.obs.float()).to(f64))
-    g, c, d = s_g.obs.cpu().to(f64), s_c.obs.to(f64), s_d.obs
+    s_g = env_g.step(s_g, policy(policy_obs(s_g)))
+    s_c = env_c.step(s_c, pol_cpu(policy_obs(s_c)))
+    s_d = env_d.step(s_d, pol_cpu(policy_obs(s_d).float()).to(f64))
+    g, c, d = obs_of(s_g).cpu().to(f64), obs_of(s_c).to(f64), obs_of(s_d)
     gap_g, gap_c = (g - d).abs().amax(1), (c - d).abs().amax(1)
     med_g, med_c = gap_g.median().item(), gap_c.median().item()
     good = med_g <= 10 * med_c + 1e-6
@@ -408,13 +563,13 @@ def reference(torch, envs, env_gpu, policy, qpos, qvel, ctrl, steps=3):
     stats = lambda x: (f'max {x.max().item():.4g} median '
                        f'{x.median().item():.4g} over 1e-3 '
                        f'{int((x > 1e-3).sum().item())}')
-    log(f'reference step {step}, {len(d)} envs: obs gap to float64 per env, '
-        f'card {stats(gap_g)}; CPU fp32 {stats(gap_c)}; card-CPU max '
+    log(f'{tag} reference step {step}, {len(d)} envs: obs gap to float64 per '
+        f'env, card {stats(gap_g)}; CPU fp32 {stats(gap_c)}; card-CPU max '
         f'{(g - c).abs().max().item():.4g} '
         f'{"ok" if good else "FAIL"}')
     ok = ok and good
   if not ok:
-    raise SystemExit('the card disagrees with the CPU reference')
+    raise SystemExit(f'{tag}: the card disagrees with the CPU reference')
 
 
 # stages of the fused step, each timed on the host by the profile phase
@@ -425,16 +580,17 @@ STAGES = (
     ('physics.constraint', 'gather_leaves'),
     ('physics.constraint', 'narrowphase_leaves'),
     ('physics.lanes_assembly', 'assemble_lanes'),
+    ('physics.sensors', 'sensordata'),
 )
 
 
-def profile_control_step(torch, env, policy, state, step_ms):
+def profile_control_step(torch, tag, env, policy, state, step_ms):
   """One control step under torch.profiler: wall time, device busy time,
   device kernels launched, and the host time of each stage.  The idle
   share divides the device busy time by ``step_ms``, the wall time of a
   control step without the profiler (the profiler slows the host, not the
   device); the share under the profiler is printed beside it.  The full
-  table goes to chiprun_out/profile.txt."""
+  table goes to chiprun_out/profile_<tag>.txt."""
   import importlib
 
   from torch.profiler import ProfilerActivity, profile, record_function
@@ -470,16 +626,122 @@ def profile_control_step(torch, env, policy, state, step_ms):
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
   stages = {e.key[len('stage.'):]: e.cpu_time_total / 1e3 / e.count
             for e in events if on_host(e) and e.key.startswith('stage.')}
-  log(f'profile: 1 control step, device busy {busy_ms:.3f} ms, idle share '
+  log(f'{tag} profile: 1 control step, device busy {busy_ms:.3f} ms, idle share '
       f'{1 - busy_ms / step_ms:.4f} of the unprofiled step ({step_ms:.3f} '
       f'ms); under the profiler wall {wall_ms:.3f} ms, idle share '
       f'{1 - busy_ms / wall_ms:.4f}; {sum(e.count for e in kernels)} device '
       f'kernels; host ms per stage call (profiler on): '
       + ', '.join(f'{k} {v:.3f}' for k, v in stages.items()))
   os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
-  with open(os.path.join(ROOT, 'chiprun_out', 'profile.txt'), 'w') as f:
+  with open(os.path.join(ROOT, 'chiprun_out', f'profile_{tag}.txt'),
+            'w') as f:
     f.write(events.table(sort_by='self_device_time_total', row_limit=40))
     f.write(events.table(sort_by='cpu_time_total', row_limit=40))
+
+
+def zero_launches(lk):
+  lk.LAUNCHES.update(dict.fromkeys(lk.LAUNCHES, 0))
+
+
+def check_finite(torch, tensors):
+  for name, x, shape in tensors:
+    if shape is not None and tuple(x.shape) != shape:
+      raise SystemExit(f'{name} has shape {tuple(x.shape)}, not {shape}')
+    if not bool(torch.isfinite(x).all().item()):
+      raise SystemExit(f'{name} is not finite')
+
+
+def rollout_cube(torch, lk, env0, env, policy, state, card):
+  """The cube-push path: STEPS control steps at B = ENVS."""
+  B, n_sub = ENVS, env0.n_substeps
+  zero_launches(lk)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  rewards, nonfinite = [], torch.zeros((), device=DEV)
+  for _ in range(STEPS):
+    state = env.step(state, policy(state.obs))
+    rewards.append(state.reward)
+    nonfinite += state.metrics['nonfinite'].sum()
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t
+  launches = dict(lk.LAUNCHES)
+  substeps = STEPS * n_sub
+  expect = {'spd_solve_lanes': 2 * substeps, 'contact_select_lanes': substeps,
+            'newton_lanes_pyr_t': substeps, '_newton_lanes_core': 0}
+  if launches != expect:
+    raise SystemExit(f'launch counts {launches} != expected {expect}')
+  rew = torch.stack(rewards)
+  check_finite(torch, (('obs', state.obs, (B, 23)), ('reward', rew, None),
+                       ('qpos', state.data.qpos, (B, env0.model.nq))))
+  log(f'slice: {ENV} B={B}, {STEPS} control steps = {substeps} '
+      f'substeps in {wall:.3f} s: {B * STEPS / wall:.1f} env-steps/s, '
+      f'{wall / substeps * 1e3:.3f} ms/substep; mean reward per step '
+      f'{rew.mean().item():.4f}; guard trips {int(nonfinite.item())}; '
+      f'launches {launches}; card {card}')
+  return state, launches, wall / STEPS * 1e3
+
+
+def rollout_go2(torch, lk, env0, env, policy, state, card):
+  """The Go2 path: GO2_STEPS control steps at B = GO2_ENVS, with the
+  command-tracking errors of scripts/eval_go2.py: ‖cmd_xy − local linvel_xy‖
+  and |cmd_yaw − gyro_z|, averaged over alive steps (up to and including
+  an env's first done)."""
+  B, n_sub = GO2_ENVS, env0.n_substeps
+  zero_launches(lk)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  alive = torch.ones(B, dtype=torch.bool, device=DEV)
+  ever_done = torch.zeros(B, dtype=torch.bool, device=DEV)
+  terminated = torch.zeros(B, dtype=torch.bool, device=DEV)
+  n_alive = torch.zeros((), device=DEV)
+  lin_sum, ang_sum = torch.zeros((), device=DEV), torch.zeros((), device=DEV)
+  rew_sum, nonfinite = torch.zeros((), device=DEV), torch.zeros((), device=DEV)
+  for _ in range(GO2_STEPS):
+    state = env.step(state, policy(state.obs))
+    cmd = state.info['command']
+    lin = torch.linalg.vector_norm(
+        cmd[:, :2] - env0.get_local_linvel(state.data)[:, :2], dim=-1)
+    ang = torch.abs(cmd[:, 2] - env0.get_gyro(state.data)[:, 2])
+    w = alive.to(lin.dtype)
+    n_alive += w.sum()
+    lin_sum += (lin * w).sum()
+    ang_sum += (ang * w).sum()
+    rew_sum += state.reward.sum()
+    nonfinite += state.metrics['nonfinite'].sum()
+    done = state.done > 0
+    terminated |= done & (state.info['truncation'] == 0)
+    ever_done |= done
+    alive &= ~done
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t
+  launches = dict(lk.LAUNCHES)
+  substeps = GO2_STEPS * n_sub
+  expect = {'spd_solve_lanes': substeps, 'contact_select_lanes': 0,
+            'newton_lanes_pyr_t': 0, '_newton_lanes_core': substeps}
+  if launches != expect:
+    raise SystemExit(f'launch counts {launches} != expected {expect}')
+  check_finite(torch, (
+      ('state', state.obs['state'], (B, 48)),
+      ('privileged_state', state.obs['privileged_state'], (B, 123)),
+      ('qpos', state.data.qpos, (B, env0.model.nq)),
+      ('sensordata', state.data.sensordata, (B, env0.model.nsensordata))))
+  if not bool(torch.isfinite(rew_sum).item()):
+    raise SystemExit('reward is not finite')
+  done_share = ever_done.float().mean().item()
+  term_share = terminated.float().mean().item()
+  log(f'slice: {GO2_ENV} B={B}, {GO2_STEPS} control steps = {substeps} '
+      f'substeps in {wall:.3f} s: {B * GO2_STEPS / wall:.1f} env-steps/s, '
+      f'{wall / substeps * 1e3:.3f} ms/substep; mean reward per step '
+      f'{rew_sum.item() / (B * GO2_STEPS):.4f}; share of envs done '
+      f'{done_share:.5f} (terminated {term_share:.5f}, limit '
+      f'{GO2_MAX_DONE_SHARE}); tracking error over alive steps: lin '
+      f'{(lin_sum / n_alive).item():.4f} m/s, ang '
+      f'{(ang_sum / n_alive).item():.4f} rad/s; guard trips '
+      f'{int(nonfinite.item())}; launches {launches}; card {card}')
+  if done_share > GO2_MAX_DONE_SHARE:
+    raise SystemExit(f'{done_share:.4f} of the Go2 envs were done within '
+                     f'{GO2_STEPS} control steps')
+  return state, launches, wall / GO2_STEPS * 1e3
 
 
 def main() -> int:
@@ -494,6 +756,7 @@ def main() -> int:
     from rsr_mjx_tpu_torch import envs
     from rsr_mjx_tpu_torch.envs import wrappers
     from rsr_mjx_tpu_torch.physics import cuda_build
+    from rsr_mjx_tpu_torch.physics import fwd_fused
     from rsr_mjx_tpu_torch.physics import linalg_kernels as lk
     from rsr_mjx_tpu_torch.train import networks
   except ImportError as e:
@@ -514,62 +777,87 @@ def main() -> int:
         log(f'  {name}: {line.strip()}')
   torch.set_grad_enabled(False)
 
-  # -- 2. kernels, on the inputs of one control step of the main path
-  B = ENVS
-  env0 = envs.load(ENV, device='cuda')
-  env = wrappers.wrap_for_training(env0, episode_length=1200, num_envs=B)
+  # -- 2. kernels, on the inputs of one control step of each path
+  env0 = envs.load(ENV, device=DEV)
+  env = wrappers.wrap_for_training(env0, episode_length=1200, num_envs=ENVS)
   normalizer, params = networks.load_ppo_params(PARAMS)
-  policy = networks.make_policy(normalizer, params['policy'], device='cuda')
-  gen = torch.Generator(device='cuda').manual_seed(SEED)
+  policy = networks.make_policy(normalizer, params['policy'], device=DEV)
+  gen = torch.Generator(device=DEV).manual_seed(SEED)
   state = env.reset(gen)
   calls = record_calls(lk, lambda: env.step(state, policy(state.obs)))
   rows = check_kernels(torch, lk, calls)
+  # one cube-push state through both assemblies: the basis (K3) and the
+  # same selected contacts as generic rows (K4)
+  m, d0 = env0.model, state.data
+  cube_k3 = record_calls(lk, lambda: fwd_fused.forward_lanes(
+      m, d0, implicit=True))['newton_lanes_pyr_t'][-1]
+  cube_k4 = record_calls(lk, lambda: fwd_fused.forward_lanes(
+      m, d0, implicit=True, basis=False))['_newton_lanes_core'][-1]
+  # from a cold start: d0.qacc is already this state's solution, from which
+  # no step is accepted
+  cold = torch.zeros_like(cube_k4[5])
+  cube_k4 = (cube_k4[0], 6, 6) + tuple(cube_k4[3:5]) + (cold,) + tuple(
+      cube_k4[6:])
+  cube_k3 = tuple(cube_k3[:5]) + (cold,) + tuple(cube_k3[6:])
   del calls
 
-  # -- 3. the slice
-  d0 = state.data
-  n = REF_ENVS
-  reference(torch, envs, env0, policy, d0.qpos[:n], d0.qvel[:n], d0.ctrl[:n])
-  n_sub = env0.n_substeps
-  lk.LAUNCHES.update(dict.fromkeys(lk.LAUNCHES, 0))
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  rewards, nonfinite = [], torch.zeros((), device='cuda')
-  for _ in range(STEPS):
-    state = env.step(state, policy(state.obs))
-    rewards.append(state.reward)
-    nonfinite += state.metrics['nonfinite'].sum()
-  torch.cuda.synchronize()
-  wall = time.perf_counter() - t
-  launches = dict(lk.LAUNCHES)
-  substeps = STEPS * n_sub
-  expect = {'spd_solve_lanes': 2 * substeps, 'contact_select_lanes': substeps,
-            'newton_lanes_pyr_t': substeps}
-  if launches != expect:
-    raise SystemExit(f'launch counts {launches} != expected {expect}')
-  rew = torch.stack(rewards)
-  for name, x, shape in (('obs', state.obs, (B, 23)), ('reward', rew, None),
-                         ('qpos', state.data.qpos, (B, env0.model.nq))):
-    if shape is not None and tuple(x.shape) != shape:
-      raise SystemExit(f'{name} has shape {tuple(x.shape)}, not {shape}')
-    if not bool(torch.isfinite(x).all().item()):
-      raise SystemExit(f'{name} is not finite')
-  log(f'slice: {ENV} B={B}, {STEPS} control steps = {substeps} '
-      f'substeps in {wall:.3f} s: {B * STEPS / wall:.1f} env-steps/s, '
-      f'{wall / substeps * 1e3:.3f} ms/substep; mean reward per step '
-      f'{rew.mean().item():.4f}; guard trips {int(nonfinite.item())}; '
-      f'launches {launches}; card {card}')
+  g_env0 = envs.load(GO2_ENV, device=DEV)
+  g_env = wrappers.wrap_for_training(g_env0, episode_length=1000,
+                                     num_envs=GO2_ENVS)
+  g_norm, g_params = networks.load_ppo_params(GO2_PARAMS)
+  g_policy = networks.make_policy(g_norm, g_params['policy'], device=DEV,
+                                  obs_key='state')
+  g_state = g_env.reset(gen)
+  calls = record_calls(lk, lambda: g_env.step(g_state, g_policy(g_state.obs)))
+  n_sub = g_env0.n_substeps
+  if (len(calls['_newton_lanes_core']), len(calls['spd_solve_lanes'])) != (
+      n_sub, n_sub):
+    raise SystemExit('a Go2 control step must call K4 and K1 once a substep')
+  rows['_newton_lanes_core'] = check_k4(
+      torch, lk, calls['_newton_lanes_core'][-1], cube_k4, cube_k3)
+  rows['K1 at nv 18 (Go2)'] = k1_row(torch, lk, calls['spd_solve_lanes'][-2:])
+  del calls, cube_k3, cube_k4
+  report(rows)
 
-  profile_control_step(torch, env, policy, state, wall / STEPS * 1e3)
+  # -- 3. the two paths: reference, rollout, profile
+  n = REF_ENVS
+
+  def cube_envs(device, dtype):
+    e = env0 if device == DEV else envs.load(ENV, device=device,
+                                                dtype=dtype)
+    return e, e.reset_to(*(x[:n].to(device, dtype)
+                           for x in (d0.qpos, d0.qvel, d0.ctrl)))
+
+  reference(torch, 'cube-push', cube_envs, policy, lambda s: s.obs)
+  state, launches, step_ms = rollout_cube(torch, lk, env0, env, policy,
+                                          state, card)
+  profile_control_step(torch, 'cube', env, policy, state, step_ms)
+
+  quiet = {'noise_config.level': 0.0}
+  g_init = g_env0.sample_init(gen, n)
+
+  def go2_envs(device, dtype):
+    e = envs.load(GO2_ENV, device=device, dtype=dtype, config_overrides=quiet)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    return e, e.reset_to({k: v.to(device) for k, v in g_init.items()}, g)
+
+  reference(torch, 'Go2', go2_envs, g_policy,
+            lambda s: s.obs['privileged_state'], lambda s: s.obs['state'])
+  g_state, g_launches, g_step_ms = rollout_go2(torch, lk, g_env0, g_env,
+                                               g_policy, g_state, card)
+  profile_control_step(torch, 'go2', g_env, g_policy, g_state, g_step_ms)
 
   # -- 4. result
   log('kernels: ' + ', '.join(f'{v[0]} {k}' for k, v in KERNELS.items()))
   out = []
   for name, (short, src, tpu) in KERNELS.items():
     r = rows[name]
+    count = launches[name] + g_launches[name]
+    if count <= 0:
+      raise SystemExit(f'{name} was launched by neither path')
     out.append({
         'name': name, 'route': 'cuda', 'source': src, 'replaces': tpu,
-        'launches': launches[name], 'max_abs_err': r['max_abs_err'],
+        'launches': count, 'max_abs_err': r['max_abs_err'],
         'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
         'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
     })

@@ -25,6 +25,9 @@
 // Per env and iteration the Hessian alone is nv(nv+1)/2 (Rs + NU)
 // multiply-adds (210 x 133 on cube-push), against ~12 KB of input per env.
 //
+// The row penalties, the block reduction and the regularised Cholesky
+// direction are shared with K4 (newton_common.cuh).
+//
 // Design: one block (128 threads) per env.  J, U, W = U S, M and H live in
 // shared memory (~26 KB on cube-push); threads run over rows for the
 // matvecs, over (a, b) pairs for the Hessian and over rows within one
@@ -35,37 +38,9 @@
 
 #include <cuda_runtime.h>
 
+#include "newton_common.cuh"
+
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ void penalty_se(float r, float D, float fl,
-                                           float ones, float fric, float& g,
-                                           float& c) {
-  const float gq = D * r;
-  const bool active = (r < 0.f) || (ones <= 0.f);
-  const float lim = fric > 0.f ? fl : 1e30f;
-  const bool inq = fabsf(gq) <= lim;
-  const float sgn = r > 0.f ? 1.f : (r < 0.f ? -1.f : 0.f);
-  g = inq ? gq : sgn * lim;
-  c = inq ? D : 0.f;
-  if (!active || (fric > 0.f && fl <= 0.f)) {
-    g = 0.f;
-    c = 0.f;
-  }
-}
-
-__device__ __forceinline__ float penalty_cost(float r, float D, float fl,
-                                              float ones, float fric) {
-  const bool active = (r < 0.f) || (ones <= 0.f);
-  const float lim = fric > 0.f ? fl : 1e30f;
-  const bool inq = fabsf(D * r) <= lim;
-  const float quad = 0.5f * D * r * r;
-  const float tail = fl * fabsf(r) - 0.5f * fl * fl / fmaxf(D, 1e-12f);
-  if (!active || (fric > 0.f && fl <= 0.f)) return 0.f;
-  return inq ? quad : tail;
-}
 
 // one-sided quadratic of a contact row: (s', s'')
 __device__ __forceinline__ void con_se(float r, float Dc, float& g,
@@ -73,27 +48,6 @@ __device__ __forceinline__ void con_se(float r, float Dc, float& g,
   const float act = r < 0.f ? 1.f : 0.f;
   g = Dc * r * act;
   c = Dc * act;
-}
-
-// sums of (a, b) over the block, returned to every thread
-__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // earlier readers of red are done
-  if (lane == 0) {
-    red[warp] = a;
-    red[kWarps + warp] = b;
-  }
-  __syncthreads();
-  a = 0.f;
-  b = 0.f;
-  for (int w = 0; w < kWarps; ++w) {
-    a += red[w];
-    b += red[kWarps + w];
-  }
 }
 
 struct Layout {
@@ -273,44 +227,8 @@ __global__ void newton_pyr_kernel(
       if (b != a) H[b * nv + a] = t + M[b * nv + a];
     }
     __syncthreads();
-    if (tid == 0) {
-      float dmax = 0.f;  // max over H * eye, whose off-diagonal zeros count
-      for (int a = 0; a < nv; ++a) dmax = fmaxf(dmax, H[a * nv + a]);
-      const float reg = 1e-6f * dmax + 1e-12f;
-      for (int a = 0; a < nv; ++a) H[a * nv + a] += reg;
-    }
-    __syncthreads();
-
-    // right-looking Cholesky; L[i][j] stored at H[i * nv + j] (i > j)
-    for (int j = 0; j < nv; ++j) {
-      const float dj2 = fmaxf(H[j * nv + j], 1e-12f);
-      const float inv = rsqrtf(dj2);
-      for (int i = j + tid; i < nv; i += kThreads) col[i] = H[j * nv + i] * inv;
-      if (tid == 0) dj[j] = dj2 * inv;
-      __syncthreads();
-      const int m = nv - j - 1;
-      for (int p = tid; p < m * m; p += kThreads) {
-        const int a = j + 1 + p / m, b = j + 1 + p % m;
-        H[a * nv + b] -= col[b] * col[a];
-      }
-      for (int i = j + 1 + tid; i < nv; i += kThreads) H[i * nv + j] = col[i];
-      __syncthreads();
-    }
-    if (tid == 0) {
-      for (int i = 0; i < nv; ++i) y[i] = grad[i];
-      for (int j = 0; j < nv; ++j) {
-        const float yj = y[j] / dj[j];
-        y[j] = yj;
-        for (int i = j + 1; i < nv; ++i) y[i] -= H[i * nv + j] * yj;
-      }
-      for (int j = nv - 1; j >= 0; --j) {
-        float t = 0.f;
-        for (int i = j + 1; i < nv; ++i) t += H[i * nv + j] * col[i];
-        col[j] = (y[j] - t) / dj[j];  // col now holds the solution
-      }
-      for (int a = 0; a < nv; ++a) dx[a] = -col[a];
-    }
-    __syncthreads();
+    // Tikhonov term, Cholesky and dx = -H^-1 grad (newton_common.cuh)
+    regularized_newton_direction(H, nv, grad, dx, dj, col, y);
 
     // directional quantities of the line search
     for (int a = tid; a < nv; a += kThreads) {

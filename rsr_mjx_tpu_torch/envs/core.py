@@ -50,10 +50,11 @@ def init(m: Model, qpos: torch.Tensor, qvel: Optional[torch.Tensor] = None,
 
 
 def step(m: Model, d: Data, ctrl: torch.Tensor, n_substeps: int = 1) -> Data:
-  """Advance every env ``n_substeps`` physics steps with ``ctrl`` held."""
+  """Advance every env ``n_substeps`` physics steps with ``ctrl`` held.
+  Sensors are pure outputs, so only the last substep fills them."""
   ctrl = ctrl.to(d.qpos.dtype)
-  for _ in range(n_substeps):
-    d = physics.step(m, d.replace(ctrl=ctrl))
+  for i in range(n_substeps):
+    d = physics.step(m, d.replace(ctrl=ctrl), sensors=i == n_substeps - 1)
   return d
 
 

@@ -27,7 +27,8 @@ from rsr_mjx_tpu_torch.envs.core import Env, State, Wrapper
 def tree_map(fn, *trees):
   """Apply ``fn`` leafwise over tensors in matching dataclass (State, Data,
   Contact) / dict / tuple / list structures; other leaves (python numbers,
-  static numpy arrays, None) pass through from the first tree."""
+  static numpy arrays, a ``torch.Generator``, None) pass through from the
+  first tree."""
   t0 = trees[0]
   if isinstance(t0, torch.Tensor):
     return fn(*trees)
@@ -135,7 +136,9 @@ class NonFiniteGuardWrapper(Wrapper):
     speed = torch.amax(torch.abs(torch.nan_to_num(qvel, nan=float('inf'))),
                        dim=-1)
     blown = (~finite) | (speed > self.qvel_limit)
-    blown = blown | ~torch.all(torch.isfinite(state.obs), dim=-1)
+    obs = state.obs
+    for leaf in (obs.values() if isinstance(obs, dict) else [obs]):
+      blown = blown | ~torch.all(torch.isfinite(leaf), dim=-1)
     return blown | ~torch.isfinite(state.reward)
 
   def reset(self, *args) -> State:
@@ -156,7 +159,7 @@ class NonFiniteGuardWrapper(Wrapper):
 
     data = tree_map(where_blown, tree_map(_nan_to_zero, state.data),
                     state.data)
-    obs = where_blown(_nan_to_zero(state.obs), state.obs)
+    obs = tree_map(where_blown, tree_map(_nan_to_zero, state.obs), state.obs)
     reward = torch.where(blown, torch.zeros_like(state.reward), state.reward)
     done = torch.where(blown, torch.ones_like(state.done), state.done)
     metrics = tree_map(_nan_to_zero, state.metrics)
@@ -192,7 +195,7 @@ class AutoResetWrapper(Wrapper):
     state = self.env.step(state, action)
     where_done = lambda x, y: _where(state.done > 0, x, y)
     data = tree_map(where_done, state.info['first_data'], state.data)
-    obs = where_done(state.info['first_obs'], state.obs)
+    obs = tree_map(where_done, state.info['first_obs'], state.obs)
     return state.replace(data=data, obs=obs)
 
 

@@ -7,10 +7,12 @@ separated candidates.  Each 3-vector is a python list of three (P, B)
 tensors (P pairs, B envs), so each primitive is one elementwise op over
 the whole batch.
 
-This slice ports the box_box group, the only one the Airbot cube scene
-has (30 pairs × 16 probes = 480 slots).  Other pair groups raise
-``NotImplementedError`` naming the pair; they come with the T-push and Go2
-slices.
+Ported pair groups: box_box, the only one the Airbot cube scene has
+(30 pairs × 16 probes = 480 slots), and plane_sphere, the only one the Go2
+flat-terrain scene has (four feet against the floor, 4 slots).  The other
+groups (plane-box, plane-capsule, sphere and capsule pairs, the
+heightfield) raise ``NotImplementedError`` naming the pair; they come with
+T-push and the remaining Go2 tasks.
 
 Contact convention (MuJoCo): ``frame[0]`` is the normal from geom1 towards
 geom2; ``dist < 0`` means penetration; ``pos`` is the midpoint between the
@@ -24,7 +26,7 @@ import torch
 
 from rsr_mjx_tpu_torch.physics import statics
 from rsr_mjx_tpu_torch.physics.io import GROUP_NCON
-from rsr_mjx_tpu_torch.physics.types import Model
+from rsr_mjx_tpu_torch.physics.types import Data, Model
 
 _MJ_MINVAL = 1e-15
 
@@ -138,7 +140,16 @@ def _box_box(p1, m1, s1, p2, m2, s2):
   return out
 
 
-_GROUP_FN = {'box_box': _box_box}
+def _plane_sphere(p1, m1, s1, p2, m2, s2):
+  """One slot per pair: the sphere's lowest point along the plane normal."""
+  n = [m1[i][2] for i in range(3)]
+  r = s2[0]
+  dist = _dot(n, _sub(p2, p1)) - r
+  pos = _sub(p2, _scale(n, r + 0.5 * dist))
+  return [(dist, pos, n)]
+
+
+_GROUP_FN = {'box_box': _box_box, 'plane_sphere': _plane_sphere}
 
 
 def _collide_lanes(m: Model, geom_size, gxpos, gxmat):
@@ -256,3 +267,19 @@ def contact_static_ids(m: Model):
       g2.append(np.repeat(tbl[:, 1], k))
       cd.append(np.repeat(tbl[:, 2], k))
   return np.concatenate(g1), np.concatenate(g2), np.concatenate(cd)
+
+
+def geoms_colliding(m: Model, d: Data, geom1: int, geom2: int) -> torch.Tensor:
+  """(B,) bool: whether any contact slot of the (geom1, geom2) pair
+  penetrates.  The slots are located from the static contact table, so this
+  is a fixed gather and a reduction."""
+  g1, g2 = d.contact.geom1, d.contact.geom2
+  sel = np.nonzero(
+      ((g1 == geom1) & (g2 == geom2)) | ((g1 == geom2) & (g2 == geom1))
+  )[0]
+  dist = d.contact.dist
+  if len(sel) == 0:
+    return torch.zeros(dist.shape[0], dtype=torch.bool, device=dist.device)
+  idx = statics.table(m, f'colliding.{geom1}.{geom2}', lambda: sel,
+                      dist.device, torch.long)
+  return torch.any(dist[:, idx] < 0, dim=1)

@@ -27,6 +27,7 @@ SIGNATURES = {
     'contact_select': ('contact_select_launch',
                        [P, P, P, P, P, I, I, I, I, I, P]),
     'newton_pyr': ('newton_pyr_launch', [P] * 16 + [I] * 7 + [P]),
+    'newton_generic': ('newton_generic_launch', [P] * 12 + [I] * 5 + [P]),
 }
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']

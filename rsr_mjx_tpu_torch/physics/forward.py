@@ -2,8 +2,12 @@
 
 Counterpart of ``rsr_mjx_tpu/physics/forward.py``.  ``step(m, d)`` runs the
 fused chain of ``fwd_fused`` (kinematics → smooth dynamics → narrow phase
-→ assembly → Newton solve → implicit solve) and integrates; ``forward``
-runs the same chain without the implicit solve, for ``envs.core.init``.
+→ assembly → Newton solve → implicit solve), fills the sensors and
+integrates; ``forward`` runs the same chain without the implicit solve, for
+``envs.core.init``.  Sensors are pure outputs, read from the state before
+integration and from the raw constrained acceleration; ``sensors=False``
+skips them (a control step of several substeps needs them on its last one
+only).
 
 Precision: the JAX physics runs under matmul precision 'highest' (true
 fp32; bf16 matmuls corrupted its contact geometry).  The port keeps fp32
@@ -19,6 +23,7 @@ from rsr_mjx_tpu_torch.physics import collision as _collision
 from rsr_mjx_tpu_torch.physics import constraint as _constraint
 from rsr_mjx_tpu_torch.physics import fwd_fused as _ff
 from rsr_mjx_tpu_torch.physics import lie
+from rsr_mjx_tpu_torch.physics import sensors as _sensors
 from rsr_mjx_tpu_torch.physics.types import Contact, Data, JointType, Model
 
 
@@ -55,11 +60,12 @@ def make_data(m: Model, batch_size: int) -> Data:
   )
 
 
-def forward(m: Model, d: Data) -> Data:
-  """Forward dynamics: fills qacc and every product before it."""
+def forward(m: Model, d: Data, sensors: bool = True) -> Data:
+  """Forward dynamics: fills qacc and every product before it, and
+  ``sensordata`` unless ``sensors`` is False."""
   _fp32()
   d, _ = _ff.forward_lanes(m, d, implicit=False)
-  return d
+  return _sensors.sensordata(m, d) if sensors else d
 
 
 def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt):
@@ -81,11 +87,14 @@ def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt):
   return out
 
 
-def step(m: Model, d: Data) -> Data:
+def step(m: Model, d: Data, sensors: bool = True) -> Data:
   """One physics step of every env in the batch: the fused forward chain
-  and the implicit-damping solve, then semi-implicit Euler integration."""
+  and the implicit-damping solve, the sensors (unless ``sensors`` is
+  False), then semi-implicit Euler integration."""
   _fp32()
   d, qacc_i = _ff.forward_lanes(m, d, implicit=True)
+  if sensors:
+    d = _sensors.sensordata(m, d)
   h = m.opt.timestep
   qvel = d.qvel + h * qacc_i
   qpos = _integrate_pos(m, d.qpos, qvel, h)

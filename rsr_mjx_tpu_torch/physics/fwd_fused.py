@@ -4,8 +4,17 @@ Counterpart of the batched lanes route of ``rsr_mjx_tpu/physics/
 fwd_fused.py`` (:230-295):
 
   kinematics → com_vel … fwd_velocity (ends in K1) → narrow phase
-  → assembly with top-k selection (K2) → pyramid Newton solve (K3)
-  → per-env finite containment → (M + h·D)⁻¹ implicit solve (K1)
+  → assembly → Newton solve → per-env finite containment
+  → (M + h·D)⁻¹ implicit solve (K1)
+
+The solve takes one of two routes, as the JAX ``_build`` decides
+(:98-103).  A model with top-k contact selection and condim ≥ 2 (cube-push)
+assembles the contact basis through the selection kernel K2 and solves with
+the pyramid-basis kernel K3.  Every other model (the Go2 family, which sets
+no selection) expands its contacts into generic rows and solves with K4
+(``_newton_lanes_core``).  ``basis=False`` sends a basis-capable model down
+the generic route too (what the JAX package does under
+``RSR_DISABLE_BASIS_KERNEL=1``).
 
 Data arrives batch-major (B, …) and the chain runs with the batch in the
 trailing axis, as the JAX lanes route does; the outputs cross back once.
@@ -31,33 +40,39 @@ _DSBL_EULERDAMP = 32768
 
 
 def supported(m: Model) -> bool:
-  """Whether the fused chain covers model ``m``."""
+  """Whether the fused chain covers model ``m``: an Euler or implicit
+  integrator, at least one constraint row, and actuators the lanes smooth
+  stage takes."""
   if m.opt.integrator not in (IntegratorType.EULER, IntegratorType.IMPLICIT,
                               IntegratorType.IMPLICITFAST):
     return False
-  if m.nsensordata:
-    return False  # sensors are not ported yet
-  nsel = _constraint._selection_size(m)
-  return bool(
-      _ls.lanes_supported(m) and m.ncon and nsel
-      and int(_constraint._condims_static(m)[0]) >= 2
-  )
+  return bool(_ls.lanes_supported(m)
+              and _constraint.layout_cached(m).nefc > 0)
 
 
-def forward_lanes(m: Model, d: Data, implicit: bool):
+def use_basis(m: Model) -> bool:
+  """Whether ``m`` takes the contact-basis route (K2 + K3): contacts with
+  top-k selection and condim >= 2."""
+  return bool(m.ncon and _constraint._selection_size(m)
+              and int(_constraint._condims_static(m)[0]) >= 2)
+
+
+def forward_lanes(m: Model, d: Data, implicit: bool, basis: bool = True):
   """Run the chain on batch ``d``; returns (d_filled, qacc_implicit or None).
 
   ``d_filled`` carries the kinematics, smooth-dynamics and constraint
-  products, with qacc the constrained acceleration; ``qacc_implicit`` is
-  the acceleration the integrator uses (only when ``implicit``)."""
+  products, with qacc the constrained acceleration (what the sensors read);
+  ``qacc_implicit`` is the acceleration the integrator uses (only when
+  ``implicit``).  ``basis=False`` keeps a model with contact selection off
+  the basis route: its selected contacts become generic rows for K4."""
   if not supported(m):
     raise NotImplementedError(
-        'the fused step covers Euler/implicit integrators, joint actuators, '
-        'no sensors and contact selection with condim >= 2'
+        'the fused step covers Euler and implicit integrators, models with '
+        'at least one constraint row, and joint actuators on hinge or slide '
+        'joints'
     )
   lay = _constraint.layout_cached(m)
-  n_struct = lay.n_eq + lay.n_fri + lay.n_lim
-  kind_s = lay.kind[:n_struct]
+  basis = basis and use_basis(m)
   kernel_iters = max(min(m.opt.iterations, 6), 1)
   ls_eff = max(min(m.opt.ls_iterations, 6), 1)
   nv, nu = m.nv, m.nu
@@ -74,12 +89,23 @@ def forward_lanes(m: Model, d: Data, implicit: bool):
   lv = _constraint.gather_leaves(m, qpos_l, qvel_l, kout.cdof,
                                  kout.cdof_anchor, kout.geom_xpos,
                                  kout.geom_xmat)
-  (J_s, aref_s, D_s, fl_s, dist_bm, U, arefU, D_c, naxes) = (
-      _lanes.assemble_lanes(m, lv))
-  xt, force_l, qft_l = _lk.newton_lanes_pyr_t(
-      kernel_iters, ls_eff, kind_s, qM_l.contiguous(), qaccsm_l.contiguous(),
-      T(d.qacc).contiguous(), J_s, aref_s, D_s, fl_s, U, arefU, D_c, naxes,
-  )
+  qM_c, a0_c = qM_l.contiguous(), qaccsm_l.contiguous()
+  x0_c = T(d.qacc).contiguous()
+  if basis:
+    n_struct = lay.n_eq + lay.n_fri + lay.n_lim
+    (J_s, aref_s, D_s, fl_s, dist_bm, U, arefU, D_c, naxes) = (
+        _lanes.assemble_lanes(m, lv, basis=True))
+    xt, force_l, qft_l = _lk.newton_lanes_pyr_t(
+        kernel_iters, ls_eff, lay.kind[:n_struct], qM_c, a0_c, x0_c,
+        J_s, aref_s, D_s, fl_s, U, arefU, D_c, naxes,
+    )
+  else:
+    J_l, aref_l, D_l, fl_l, dist_bm = _lanes.assemble_lanes(
+        m, lv, basis=False)
+    xt, force_l, qft_l = _lk._newton_lanes_core(
+        lay.kind, kernel_iters, ls_eff, qM_c, a0_c, x0_c, J_l, aref_l, D_l,
+        fl_l,
+    )
   # containment: an env whose solve went non-finite falls back to its
   # unconstrained acceleration (MuJoCo's mjWARN_BADQACC counterpart)
   ok = (torch.all(torch.isfinite(xt), dim=0)

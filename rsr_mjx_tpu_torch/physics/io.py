@@ -182,6 +182,9 @@ def put_model(mjm, device='cuda') -> Model:
       'site': {mjm.site(i).name: i for i in range(mjm.nsite)},
       'sensor': {mjm.sensor(i).name: i for i in range(mjm.nsensor)},
       'actuator': {mjm.actuator(i).name: i for i in range(mjm.nu)},
+      # keyframes by name: the envs read key_qpos/key_ctrl rows, since the
+      # compiled MjModel is not at hand where the snapshot is loaded
+      'key': {mjm.key(i).name: i for i in range(mjm.nkey)},
   }
   opt = Option(
       timestep=f32(mjm.opt.timestep),

@@ -1,15 +1,21 @@
 """Constraint assembly with the batch in the trailing axis.
 
-Counterpart of ``rsr_mjx_tpu/physics/lanes_assembly.py``, on the path the
-cube-push step takes: ``assemble_lanes(basis=True, dyn_lanes=True)`` with
-top-k contact selection through kernel K2 (``contact_select_lanes``).  It
-returns the structured rows [equality | dof friction | joint limits] as a
-(J, aref, D, floss) block and the selected contacts as the pyramid BASIS
-U = [Jn | μ₁A₁ | …] with per-basis aref and per-contact D, which kernel K3
-consumes.
+Counterpart of ``rsr_mjx_tpu/physics/lanes_assembly.py`` with its dynamic
+leaves in lanes (``dyn_lanes=True``), in both forms:
 
-The per-row expansion without a basis (the generic Newton kernel K4, Go2)
-and the domain-randomised selection branch come with later slices.
+  - ``basis=True`` (the cube-push step): top-k contact selection through
+    kernel K2 (``contact_select_lanes``); the structured rows [equality |
+    dof friction | joint limits] as a (J, aref, D, floss) block and the
+    selected contacts as the pyramid BASIS U = [Jn | μ₁A₁ | …] with
+    per-basis aref and per-contact D, which kernel K3 consumes;
+  - ``basis=False`` (the Go2 step, and any model fed to the generic Newton
+    kernel K4): every contact expanded into its own rows after the
+    structured ones, contact-major, then friction axis, then ±; condim-1
+    contacts give one normal row each.  Contacts are all the slots (no
+    selection, grouped by condim) or the K2-selected ones.
+
+The domain-randomised branch (per-env contact parameters) comes with the
+slice that ports the randomisers.
 """
 
 from __future__ import annotations
@@ -40,24 +46,29 @@ def _limit_pattern(m: Model, lim_j: np.ndarray) -> np.ndarray:
   return pattern
 
 
-def assemble_lanes(m: Model, lv: C.AssembleLeaves):
-  """Narrow phase + assembly over a batch, contact basis form.
+def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
+  """Narrow phase + assembly over a batch.
 
   The six dynamic leaves of ``lv`` (qpos, qvel, cdof, cdof_anchor,
   geom_xpos, geom_xmat) are lanes tensors (…, B); the model leaves carry no
-  batch axis.  Requires contact selection (``m.ncon_sel``) with uniform
-  condim ≥ 2.  Returns (J_s (nv, Rs, B), aref_s, D_s, floss_s (Rs, B),
+  batch axis.
+
+  ``basis=True`` requires contact selection (``m.ncon_sel``) with uniform
+  condim ≥ 2 and returns (J_s (nv, Rs, B), aref_s, D_s, floss_s (Rs, B),
   dist (B, ncon), U (nv, (naxes+1)·nsel, B), arefU ((naxes+1)·nsel, B),
-  D_c (nsel, B), naxes).
+  D_c (nsel, B), naxes).  ``basis=False`` returns the generic rows
+  (J (nv, nefc, B), aref, D, floss (nefc, B), dist (B, ncon)) in the order
+  of ``constraint.layout``.
   """
   lay = C.layout_cached(m)
   nv = m.nv
   nsel = C._selection_size(m)
-  if not (m.ncon and nsel):
-    raise ValueError('basis assembly requires contacts and ncon_sel')
-  cd0 = int(C._condims_static(m)[0])
-  if cd0 < 2:
-    raise ValueError('basis assembly requires condim >= 2')
+  condims = C._condims_static(m)
+  if basis:
+    if not (m.ncon and nsel):
+      raise ValueError('basis assembly requires contacts and ncon_sel')
+    if int(condims[0]) < 2:
+      raise ValueError('basis assembly requires condim >= 2')
   qpos, qvel = lv.qpos, lv.qvel  # (nq, B), (nv, B)
   B = qpos.shape[-1]
   dtype, dev = qpos.dtype, qpos.device
@@ -131,82 +142,145 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves):
     margin_blocks.append(bc(e(rep2(lv.jnt_margin[lim_t]))))
 
   # ---- contacts: narrow phase, then the top-nsel selection (kernel K2)
-  dist_l, pos_l, frame_l = C.narrowphase_leaves(m, lv)
-  dist_bm = dist_l.transpose(0, 1)  # (B, ncon)
-  feat_dyn = torch.cat(
-      [dist_l[:, None], pos_l, frame_l.reshape(m.ncon, 9, B)], dim=1
-  ).contiguous()  # (ncon, 13, B)
-  nFd = feat_dyn.shape[1]
-  slot0 = const('pair_slot0', lambda: _pair_slot0(m), torch.long)
-  feat_st = torch.cat([lv.con_friction, lv.con_solref, lv.con_solimp,
-                       lv.con_invweight[:, None]], dim=1)  # (ncon, 13)
-  dmask_all = const('contact_dmask', lambda: C.contact_dmask(m),
-                    dtype)  # (ncon, nv)
-  ptab = torch.cat([feat_st[slot0], dmask_all[slot0]], dim=1).contiguous()
-  pair_struct = tuple((P, k, off) for _, P, k, off in C.pair_groups(m))
-  sel = _lk.contact_select_lanes(pair_struct, nsel, dist_l.contiguous(),
-                                 feat_dyn, ptab)  # (nsel, 13 + 13 + nv, B)
-
-  c_dist = sel[:, 0]  # (nc, B)
-  c_pos = sel[:, 1:4]  # (nc, 3, B)
-  c_frame = sel[:, 4:13]  # (nc, 9, B)
-  sel_st = sel[:, nFd : nFd + 13]
-  c_friction = sel_st[:, 0:5]
-  c_solref = sel_st[:, 5:7]
-  c_solimp = sel_st[:, 7:12]
-  c_invw = sel_st[:, 12]
-  dmask = sel[:, nFd + 13 : nFd + 13 + nv]  # (nc, nv, B)
-
-  ang = [lv.cdof[:, k] for k in range(3)]  # each (nv, B)
-  lin = [lv.cdof[:, 3 + k] for k in range(3)]
-  anch = lv.cdof_anchor  # (nv, 3, B)
-
-  def contract(jac, vec9, off):
-    """Σ_k jac[k] * frame component (off + k); jac[k] (nc, nv, B)."""
-    return sum(jac[k] * vec9[:, off + k][:, None, :] for k in range(3))
-
-  jac_p, jac_r = [], []
-  for k in range(3):
-    relk2 = c_pos[:, (k + 2) % 3][:, None, :] - anch[:, (k + 2) % 3][None]
-    relk1 = c_pos[:, (k + 1) % 3][:, None, :] - anch[:, (k + 1) % 3][None]
-    jac_t = (lin[k][None] + ang[(k + 1) % 3][None] * relk2
-             - ang[(k + 2) % 3][None] * relk1)  # (nc, nv, B)
-    jac_p.append(jac_t * dmask)
-    jac_r.append(ang[k][None] * dmask)
-
-  Jn = contract(jac_p, c_frame, 0)  # (nc, nv, B)
-  nf = cd0 - 1
-  axes = [
-      contract(jac_p, c_frame, 3),  # t1
-      contract(jac_p, c_frame, 6),  # t2
-      contract(jac_r, c_frame, 0),  # torsion
-      contract(jac_r, c_frame, 3),  # roll1
-      contract(jac_r, c_frame, 6),  # roll2
-  ][:nf]
-  U_parts = [Jn.transpose(0, 1)]  # (nv, nc, B)
-  velU = [torch.sum(Jn * qvel[None], dim=1)]  # (nc, B)
-  for i in range(nf):
-    Ai = c_friction[:, i][:, None, :] * axes[i]  # μᵢAᵢ
-    U_parts.append(Ai.transpose(0, 1))
-    velU.append(torch.sum(Ai * qvel[None], dim=1))
-  U_basis = torch.cat(U_parts, dim=1).contiguous()  # (nv, (nf+1)·nc, B)
-  imp_c = C._impedance(c_solimp, c_dist)
-  kk_c, bb_c = C._kbi(c_solref, c_solimp[:, 1])
-  mu0 = c_friction[:, 0]
-  diagA_c = (c_invw * 2.0 * torch.clamp(mu0 * mu0, min=_MJ_MINVAL)
-             / m.opt.impratio)
-  Rreg_c = torch.clamp(
-      (1.0 - imp_c) / torch.clamp(imp_c, min=_MJ_MINVAL) * diagA_c,
-      min=_MJ_MINVAL,
-  )
-  sep_c = c_dist >= 0.0
+  # or every slot as it is
   zero = torch.zeros((), dtype=dtype, device=dev)
-  D_c = torch.where(sep_c, zero, 1.0 / Rreg_c)
-  aref_n = torch.where(sep_c, zero, -bb_c * velU[0] - kk_c * imp_c * c_dist)
-  arefU = torch.cat(
-      [aref_n] + [torch.where(sep_c, zero, -bb_c * v) for v in velU[1:]],
-      dim=0,
-  )
+  basis_out = ()
+  if m.ncon:
+    dist_l, pos_l, frame_l = C.narrowphase_leaves(m, lv)
+    dist_bm = dist_l.transpose(0, 1)  # (B, ncon)
+    dmask_all = const('contact_dmask', lambda: C.contact_dmask(m),
+                      dtype)  # (ncon, nv)
+    if nsel:
+      feat_dyn = torch.cat(
+          [dist_l[:, None], pos_l, frame_l.reshape(m.ncon, 9, B)], dim=1
+      ).contiguous()  # (ncon, 13, B)
+      nFd = feat_dyn.shape[1]
+      slot0 = const('pair_slot0', lambda: _pair_slot0(m), torch.long)
+      feat_st = torch.cat([lv.con_friction, lv.con_solref, lv.con_solimp,
+                           lv.con_invweight[:, None]], dim=1)  # (ncon, 13)
+      ptab = torch.cat([feat_st[slot0], dmask_all[slot0]], dim=1).contiguous()
+      pair_struct = tuple((P, k, off) for _, P, k, off in C.pair_groups(m))
+      sel = _lk.contact_select_lanes(pair_struct, nsel, dist_l.contiguous(),
+                                     feat_dyn, ptab)  # (nsel, 13+13+nv, B)
+      c_dist = sel[:, 0]  # (nc, B)
+      c_pos = sel[:, 1:4]  # (nc, 3, B)
+      c_frame = sel[:, 4:13]  # (nc, 9, B)
+      sel_st = sel[:, nFd : nFd + 13]
+      c_friction = sel_st[:, 0:5]
+      c_solref = sel_st[:, 5:7]
+      c_solimp = sel_st[:, 7:12]
+      c_invw = sel_st[:, 12]
+      dmask = sel[:, nFd + 13 : nFd + 13 + nv]  # (nc, nv, B)
+      groups = [(int(condims[0]), slice(None))]
+    else:
+      c_dist = dist_l  # (ncon, B)
+      c_pos = pos_l  # (ncon, 3, B)
+      c_frame = frame_l.reshape(m.ncon, 9, B)
+      c_friction = bc(e(lv.con_friction))
+      c_solref = bc(e(lv.con_solref))
+      c_solimp = bc(e(lv.con_solimp))
+      c_invw = bc(e(lv.con_invweight))
+      dmask = dmask_all[:, :, None]  # (ncon, nv, 1)
+      groups = [
+          (cd, const(f'condim{cd}_slots',
+                     lambda cd=cd: np.nonzero(condims == cd)[0], torch.long))
+          for cd in sorted(set(int(x) for x in condims))
+      ]
+
+    ang = [lv.cdof[:, k] for k in range(3)]  # each (nv, B)
+    lin = [lv.cdof[:, 3 + k] for k in range(3)]
+    anch = lv.cdof_anchor  # (nv, 3, B)
+
+    def contract(jac, vec9, off):
+      """Σ_k jac[k] * frame component (off + k); jac[k] (nc, nv, B)."""
+      return sum(jac[k] * vec9[:, off + k][:, None, :] for k in range(3))
+
+    jac_p, jac_r = [], []
+    for k in range(3):
+      relk2 = c_pos[:, (k + 2) % 3][:, None, :] - anch[:, (k + 2) % 3][None]
+      relk1 = c_pos[:, (k + 1) % 3][:, None, :] - anch[:, (k + 1) % 3][None]
+      jac_t = (lin[k][None] + ang[(k + 1) % 3][None] * relk2
+               - ang[(k + 2) % 3][None] * relk1)  # (nc, nv, B)
+      jac_p.append(jac_t * dmask)
+      jac_r.append(ang[k][None] * dmask)
+
+    Jn = contract(jac_p, c_frame, 0)  # (nc, nv, B)
+    friction_axes = lambda nf: [
+        contract(jac_p, c_frame, 3),  # t1
+        contract(jac_p, c_frame, 6),  # t2
+        contract(jac_r, c_frame, 0),  # torsion
+        contract(jac_r, c_frame, 3),  # roll1
+        contract(jac_r, c_frame, 6),  # roll2
+    ][:nf]
+
+    if basis:
+      nf = int(condims[0]) - 1
+      axes = friction_axes(nf)
+      U_parts = [Jn.transpose(0, 1)]  # (nv, nc, B)
+      velU = [torch.sum(Jn * qvel[None], dim=1)]  # (nc, B)
+      for i in range(nf):
+        Ai = c_friction[:, i][:, None, :] * axes[i]  # μᵢAᵢ
+        U_parts.append(Ai.transpose(0, 1))
+        velU.append(torch.sum(Ai * qvel[None], dim=1))
+      U_basis = torch.cat(U_parts, dim=1).contiguous()  # (nv, (nf+1)·nc, B)
+      imp_c = C._impedance(c_solimp, c_dist)
+      kk_c, bb_c = C._kbi(c_solref, c_solimp[:, 1])
+      mu0 = c_friction[:, 0]
+      diagA_c = (c_invw * 2.0 * torch.clamp(mu0 * mu0, min=_MJ_MINVAL)
+                 / m.opt.impratio)
+      Rreg_c = torch.clamp(
+          (1.0 - imp_c) / torch.clamp(imp_c, min=_MJ_MINVAL) * diagA_c,
+          min=_MJ_MINVAL,
+      )
+      sep_c = c_dist >= 0.0
+      D_c = torch.where(sep_c, zero, 1.0 / Rreg_c)
+      aref_n = torch.where(sep_c, zero,
+                           -bb_c * velU[0] - kk_c * imp_c * c_dist)
+      arefU = torch.cat(
+          [aref_n] + [torch.where(sep_c, zero, -bb_c * v) for v in velU[1:]],
+          dim=0,
+      )
+      basis_out = (U_basis, arefU.contiguous(), D_c.contiguous(), nf)
+      groups = []
+
+    # generic rows: each condim group's contacts, contact-major, then
+    # friction axis, then ±
+    for cd, sel_g in groups:
+      g = lambda x: x[sel_g]
+      k = g(c_dist).shape[0]
+      if cd == 1:
+        J_blocks.append(g(Jn).transpose(0, 1))  # (nv, k, B)
+        pos_blocks.append(g(c_dist))
+        sr_blocks.append(g(c_solref))
+        si_blocks.append(g(c_solimp))
+        diagA_blocks.append(g(c_invw))
+        floss_blocks.append(zrow(k))
+        margin_blocks.append(zrow(k))
+        continue
+      nf = cd - 1
+      axes = friction_axes(nf)
+      Jn_g = g(Jn)
+      rows = []
+      for i in range(nf):
+        mu_i = g(c_friction[:, i])[:, None, :]  # (k, 1, B)
+        ax = g(axes[i])
+        rows.append(Jn_g + mu_i * ax)
+        rows.append(Jn_g - mu_i * ax)
+      nrep = nf * 2
+      rows = torch.stack(rows, dim=1).reshape(k * nrep, nv, B)
+      J_blocks.append(rows.transpose(0, 1))  # (nv, k·nrep, B)
+      rep = lambda x: torch.repeat_interleave(x, nrep, dim=0)
+      pos_blocks.append(rep(g(c_dist)))
+      sr_blocks.append(rep(g(c_solref)))
+      si_blocks.append(rep(g(c_solimp)))
+      mu0 = g(c_friction[:, 0])
+      diagA_blocks.append(rep(
+          g(c_invw) * 2.0 * torch.clamp(mu0 * mu0, min=_MJ_MINVAL)
+          / m.opt.impratio))
+      floss_blocks.append(zrow(k * nrep))
+      margin_blocks.append(zrow(k * nrep))
+  else:
+    dist_bm = torch.zeros((B, 0), dtype=dtype, device=dev)
 
   # ---- structured rows: impedance, aref, D
   J = torch.cat(J_blocks, dim=1)  # (nv, Rs, B)
@@ -216,25 +290,27 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves):
   diagA = torch.cat(diagA_blocks, dim=0)
   floss = torch.cat(floss_blocks, dim=0)
   margin = torch.cat(margin_blocks, dim=0)
-  n_struct = lay.n_eq + lay.n_fri + lay.n_lim
-  if J.shape[1] != n_struct:
+  if basis:
+    n_rows, tag = lay.n_eq + lay.n_fri + lay.n_lim, 'struct'
+  else:
+    n_rows, tag = lay.nefc, 'all'
+  if J.shape[1] != n_rows:
     raise AssertionError((J.shape, lay))
-  kind = lay.kind[:n_struct]
+  kind = lay.kind[:n_rows]
 
   imp = C._impedance(si, pos - margin)
   kk, bb = C._kbi(sr, si[:, 1])  # dmax = raw solimp[1], as the reference
-  vel = torch.sum(J * qvel[:, None, :], dim=0)  # (Rs, B)
+  vel = torch.sum(J * qvel[:, None, :], dim=0)  # (R, B)
   aref = -bb * vel - kk * imp * (pos - margin)
   Rreg = torch.clamp(
       (1.0 - imp) / torch.clamp(imp, min=_MJ_MINVAL) * diagA, min=_MJ_MINVAL
   )
   D = 1.0 / Rreg
-  onesided = const('struct_onesided',
+  onesided = const(f'{tag}_onesided',
                    lambda: ((kind == C.LIMIT) | (kind == C.CONTACT))[:, None],
                    torch.bool)
   off = onesided & (pos - margin >= 0.0)
   D = torch.where(off, zero, D)
   aref = torch.where(off, zero, aref)
   return (J.contiguous(), aref.contiguous(), D.contiguous(),
-          floss.contiguous(), dist_bm, U_basis, arefU.contiguous(),
-          D_c.contiguous(), nf)
+          floss.contiguous(), dist_bm) + basis_out

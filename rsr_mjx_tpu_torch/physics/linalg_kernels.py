@@ -1,4 +1,4 @@
-"""The batched small linear algebra of the physics step: three Hopper
+"""The batched small linear algebra of the physics step: four Hopper
 kernels, each beside a plain PyTorch version of the same function.
 
 Counterpart of ``rsr_mjx_tpu/physics/linalg_kernels.py``, whose Pallas TPU
@@ -7,6 +7,7 @@ kernels these replace:
   K1 ``spd_solve_lanes``      ← ``_spd_kernel`` (linalg_kernels.py:103-130)
   K2 ``contact_select_lanes`` ← ``_select_kernel`` (:377-475)
   K3 ``newton_lanes_pyr_t``   ← ``_newton_kernel_pyr`` (:500-828)
+  K4 ``_newton_lanes_core``   ← ``_newton_kernel`` (:247-358, :878-974)
 
 Each public function keeps the JAX lanes layout (batch in the trailing
 axis) and argument order, so the tests compare like with like.  Dispatch is
@@ -38,6 +39,10 @@ _FRICTION = 1
 _LIMIT = 2
 _CONTACT = 3
 
+# shared memory one block may use on sm_90 (227 KB), the limit of the two
+# Newton kernels, which keep one env's whole system in it
+_SMEM_LIMIT = 232448
+
 
 # kernel launches of each wrapper; zero them with
 # LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
@@ -45,6 +50,7 @@ LAUNCHES = {
     'spd_solve_lanes': 0,
     'contact_select_lanes': 0,
     'newton_lanes_pyr_t': 0,
+    '_newton_lanes_core': 0,
 }
 
 
@@ -468,3 +474,132 @@ def newton_lanes_pyr_t(iterations: int, ls_iterations: int,
       x, fs, fc, qf)), nv, Rs, C, naxes, int(iterations), int(ls_iterations),
           B, _stream())
   return x, _force_rows(fs, fc), qf
+
+
+# ---------------------------------------------------------------------------
+# K4 — generic-row fixed-iteration Newton solve.
+#
+# Replaces _newton_kernel / _newton_lanes_core (linalg_kernels.py:247, :878):
+# the solve of every model without top-k contact selection (the Go2 family),
+# and of any model whose contacts were expanded into rows.  Same problem and
+# schedule as K3, every row through the generic penalty by its static kind:
+# equality two-sided quadratic, dof friction Huber with bound floss (inert
+# when floss <= 0), limits and contacts quadratic on r < 0 only.
+# Bound on the H100: fp32 operations outside the tensor cores at a deep
+# schedule (per env and Newton step the Hessian is nv(nv+1)/2 · R
+# multiply-adds), bytes at the Go2 schedule of one step (nv·R + nv² + … words
+# read once per env, ≈ 6 KB at nv 18, R 58).  Design: one block per env, J,
+# M and H in shared memory, threads over rows for the matvecs and over the
+# (a ≥ b) pairs for the Hessian, the Cholesky serial over columns, both
+# loops inside the kernel.  Rows are not padded with inert friction rows
+# and the batch is not padded with identity systems, as the TPU wrapper did.
+# ---------------------------------------------------------------------------
+
+
+def newton_generic_smem_bytes(nv: int, R: int) -> int:
+  """Shared memory one block of K4 needs for a system of nv dofs and R rows
+  (the layout of ``csrc/newton_generic.cu``): M, H (nv²), J (nv·R), nine row
+  vectors, nine dof vectors and the reduction scratch, in float32."""
+  return 4 * (2 * nv * nv + nv * R + 9 * R + 9 * nv + 8)
+
+
+def check_newton_generic_fits(nv: int, R: int) -> None:
+  """Raise unless K4 takes a system of nv dofs and R rows: its working set
+  must fit the 232448 bytes (227 KB) of shared memory of one block, and
+  nv <= 64."""
+  smem = newton_generic_smem_bytes(nv, R)
+  if nv > 64 or smem > _SMEM_LIMIT:
+    raise ValueError(
+        f'_newton_lanes_core kernel: a system of nv={nv}, R0={R} needs '
+        f'{smem} bytes of shared memory per env (limit {_SMEM_LIMIT}, '
+        'nv <= 64); reduce the rows with contact selection (max_contacts)')
+
+
+def newton_generic_plain(kind, iterations: int, ls_iterations: int, Mt, a0t,
+                         x0t, Jt, areft, Dt, flt):
+  """Plain version of K4; same arguments and outputs as
+  :func:`_newton_lanes_core`."""
+  nv, R, B = Jt.shape
+  dev = Mt.device
+  ones_m, fric_m = _row_masks(tuple(np.asarray(kind).tolist()), dev, Mt.dtype)
+  ones_m, fric_m = ones_m[:, None], fric_m[:, None]
+  eye = torch.eye(nv, dtype=Mt.dtype, device=dev)[:, :, None]
+  tril = torch.tril(torch.ones(nv, nv, dtype=torch.bool, device=dev))
+
+  matvec_J = lambda v: torch.sum(Jt * v[:, None, :], dim=0)  # → (R, B)
+  matvec_Jt = lambda s: torch.sum(Jt * s[None, :, :], dim=1)  # → (nv, B)
+  matvec_M = lambda v: torch.sum(Mt * v[None, :, :], dim=1)
+  bsum = lambda a: torch.sum(a, dim=0, keepdim=True)
+
+  x = x0t
+  r = matvec_J(x) - areft
+  for _ in range(iterations):
+    s_grad, s_curv = _penalty_se(r, Dt, flt, ones_m, fric_m)
+    xa = x - a0t
+    grad = matvec_M(xa) + matvec_Jt(s_grad)
+    # H = M + Jᵀ diag(s″) J, from the triangle b ≥ a, mirrored
+    T = torch.einsum('arb,crb->acb', Jt, Jt * s_curv[None])
+    T = torch.where(tril.T[:, :, None], T, torch.zeros_like(T))
+    H = T + T.transpose(0, 1) - eye * T + Mt
+    dmax = torch.amax(H * eye, dim=(0, 1), keepdim=True)
+    H = H + eye * (1e-6 * dmax + 1e-12)
+    cols, djs = _chol_cols(H, 1e-12)
+    dx = -_cho_solve_cols(cols, djs, grad)
+
+    mdx = matvec_M(dx)
+    jdx = matvec_J(dx)
+    g0 = bsum(xa * mdx)
+    h0 = bsum(dx * mdx)
+    t = torch.ones_like(g0)
+    for _ in range(ls_iterations):
+      sg, sc = _penalty_se(r + t * jdx, Dt, flt, ones_m, fric_m)
+      dphi = g0 + t * h0 + bsum(sg * jdx)
+      ddphi = h0 + bsum(sc * jdx * jdx)
+      t = torch.clamp(t - dphi / torch.clamp(ddphi, min=1e-12), 0.0, 4.0)
+    s_old = bsum(_penalty_cost_rows(r, Dt, flt, ones_m, fric_m))
+    s_new = bsum(_penalty_cost_rows(r + t * jdx, Dt, flt, ones_m, fric_m))
+    accept = (t * g0 + 0.5 * t * t * h0 + s_new - s_old) < 0
+    x = torch.where(accept, x + t * dx, x)
+    r = torch.where(accept, r + t * jdx, r)
+
+  s_grad, _ = _penalty_se(r, Dt, flt, ones_m, fric_m)
+  force = -s_grad
+  return x, force, matvec_Jt(force)
+
+
+def _newton_lanes_core(kind: np.ndarray, iterations: int, ls_iterations: int,
+                       Mt, a0t, x0t, Jt, areft, Dt, flt):
+  """Generic-row fixed-iteration Newton solve on lanes-layout inputs.
+
+  Mt (nv, nv, B), a0t/x0t (nv, B), Jt (nv, R, B), areft/Dt/flt (R, B), with
+  static row kinds ``kind`` (R,).  Returns (x (nv, B), force (R, B),
+  qfrc (nv, B)).
+
+  The kernel keeps one env's system in the shared memory of its block:
+  ``newton_generic_smem_bytes(nv, R)`` must not exceed 232448 bytes (227
+  KB), and nv must not exceed 64; past either the CUDA route raises
+  (``check_newton_generic_fits``).  nv 18 with R 58 takes 9536 bytes, nv 20
+  with R 181 takes 24948, and at nv 20 the largest R that fits is 1969."""
+  nv, R, B = Jt.shape
+  dev = Mt.device
+  for name, t, shape in (
+      ('Mt', Mt, (nv, nv, B)), ('a0t', a0t, (nv, B)), ('x0t', x0t, (nv, B)),
+      ('Jt', Jt, (nv, R, B)), ('areft', areft, (R, B)), ('Dt', Dt, (R, B)),
+      ('flt', flt, (R, B))):
+    _check(name, t, shape, Mt)
+  if len(kind) != R:
+    raise ValueError(f'kind has {len(kind)} rows, Jt has {R}')
+  if _route(Mt) == 'plain':
+    return newton_generic_plain(kind, iterations, ls_iterations, Mt, a0t, x0t,
+                                Jt, areft, Dt, flt)
+  check_newton_generic_fits(nv, R)
+  ones_m, fric_m = _row_masks(tuple(np.asarray(kind).tolist()), dev,
+                              torch.float32)
+  x = torch.empty((nv, B), dtype=torch.float32, device=dev)
+  force = torch.empty((R, B), dtype=torch.float32, device=dev)
+  qf = torch.empty((nv, B), dtype=torch.float32, device=dev)
+  LAUNCHES['_newton_lanes_core'] += 1
+  _launch('newton_generic', *(a.data_ptr() for a in (
+      Mt, a0t, x0t, Jt, areft, Dt, flt, ones_m, fric_m, x, force, qf)),
+          nv, R, int(iterations), int(ls_iterations), B, _stream())
+  return x, force, qf

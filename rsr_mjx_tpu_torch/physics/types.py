@@ -69,6 +69,20 @@ class ConeType:
   ELLIPTIC = 1
 
 
+class SensorType:
+  ACCELEROMETER = 1
+  VELOCIMETER = 2
+  GYRO = 3
+  FRAMEPOS = 26
+  FRAMEQUAT = 27
+  FRAMEXAXIS = 28
+  FRAMEYAXIS = 29
+  FRAMEZAXIS = 30
+  FRAMELINVEL = 31
+  FRAMEANGVEL = 32
+  SUBTREELINVEL = 36
+
+
 @dataclasses.dataclass
 class Option:
   """Simulation options (mjOption subset)."""

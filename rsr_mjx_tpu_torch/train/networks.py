@@ -53,16 +53,21 @@ def tanh_normal_mode(logits: torch.Tensor) -> torch.Tensor:
 
 class PPOPolicy(nn.Module):
   """Deterministic PPO policy: normalize the observation, run the policy
-  MLP (swish; jax.nn.swish is x·sigmoid(x), torch's silu), take the mode."""
+  MLP (swish; jax.nn.swish is x·sigmoid(x), torch's silu), take the mode.
+  Of a dict observation it reads the entry ``obs_key``."""
 
   def __init__(self, obs_size: int, action_size: int,
-               hidden_layer_sizes: Sequence[int] = (32, 32, 32, 32)):
+               hidden_layer_sizes: Sequence[int] = (32, 32, 32, 32),
+               obs_key: str = 'state'):
     super().__init__()
+    self.obs_key = obs_key
     self.register_buffer('obs_mean', torch.zeros(obs_size))
     self.register_buffer('obs_std', torch.ones(obs_size))
     self.mlp = MLP(obs_size, tuple(hidden_layer_sizes) + (2 * action_size,))
 
-  def forward(self, obs: torch.Tensor) -> torch.Tensor:
+  def forward(self, obs) -> torch.Tensor:
+    if isinstance(obs, dict):
+      obs = obs[self.obs_key]
     return tanh_normal_mode(self.mlp((obs - self.obs_mean) / self.obs_std))
 
 
@@ -108,12 +113,17 @@ def load_ppo_params(path: str):
   return normalizer, net
 
 
-def params_from_numpy(normalizer: RunningStatisticsState, policy) -> dict:
+def params_from_numpy(normalizer: RunningStatisticsState, policy,
+                      obs_key: str = 'state') -> dict:
   """``PPOPolicy`` state dict from the JAX parameters: ``policy`` is the
   list of {'w': (in, out), 'b': (out,)} layers, the normalizer gives the
-  observation mean and std.  nn.Linear keeps its weight as (out, in)."""
+  observation mean and std (for a dict observation, dicts of which the
+  policy reads entry ``obs_key``).  nn.Linear keeps its weight as
+  (out, in)."""
   f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-  sd = {'obs_mean': f32(normalizer.mean), 'obs_std': f32(normalizer.std)}
+  pick = lambda a: a[obs_key] if isinstance(a, dict) else a
+  sd = {'obs_mean': f32(pick(normalizer.mean)),
+        'obs_std': f32(pick(normalizer.std))}
   for i, layer in enumerate(policy):
     sd[f'mlp.layers.{i}.weight'] = f32(layer['w']).T.contiguous()
     sd[f'mlp.layers.{i}.bias'] = f32(layer['b'])
@@ -121,10 +131,11 @@ def params_from_numpy(normalizer: RunningStatisticsState, policy) -> dict:
 
 
 def make_policy(normalizer: RunningStatisticsState, policy,
-                device='cuda') -> PPOPolicy:
-  """A ``PPOPolicy`` on ``device`` holding the given JAX parameters."""
+                device='cuda', obs_key: str = 'state') -> PPOPolicy:
+  """A ``PPOPolicy`` on ``device`` holding the given JAX parameters; its
+  sizes come from the weights."""
   sizes = [np.asarray(layer['w']).shape for layer in policy]
   net = PPOPolicy(sizes[0][0], sizes[-1][1] // 2,
-                  [out for _, out in sizes[:-1]])
-  net.load_state_dict(params_from_numpy(normalizer, policy))
+                  [out for _, out in sizes[:-1]], obs_key=obs_key)
+  net.load_state_dict(params_from_numpy(normalizer, policy, obs_key))
   return net.to(device).eval()

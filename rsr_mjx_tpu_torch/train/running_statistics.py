@@ -14,7 +14,8 @@ from typing import Any
 @dataclasses.dataclass
 class RunningStatisticsState:
   """count (), and mean / summed_variance / std shaped like one observation
-  (numpy arrays as loaded, or tensors)."""
+  (numpy arrays as loaded, or tensors; for a dict observation, dicts of
+  them with the observation's keys)."""
 
   count: Any
   mean: Any
@@ -23,6 +24,8 @@ class RunningStatisticsState:
 
 
 def normalize(state: RunningStatisticsState, batch):
-  """(batch − mean) / std, as the JAX ``normalize``; ``PPOPolicy`` applies
-  the same to its buffers."""
+  """(batch − mean) / std, as the JAX ``normalize``, entry by entry for a
+  dict observation; ``PPOPolicy`` applies the same to its buffers."""
+  if isinstance(batch, dict):
+    return {k: (v - state.mean[k]) / state.std[k] for k, v in batch.items()}
   return (batch - state.mean) / state.std

@@ -1,7 +1,8 @@
 """The port's kernel functions against the JAX package's Pallas kernels.
 
 Each of K1 (SPD solve), K2 (top-k contact selection) and K3 (pyramid-basis
-Newton solve) takes the same numpy-seeded inputs, at the main path's shapes
+Newton solve) takes (K4, the generic-row Newton solve, is held in
+tests/test_torch_go2_stages.py) the same numpy-seeded inputs, at the main path's shapes
 with a small batch, through the JAX wrapper (Pallas in interpret mode, the
 code the TPU runs) and through the port's wrapper on CPU tensors, which
 takes the kernel's plain PyTorch version.  The CUDA kernels themselves are
@@ -134,4 +135,8 @@ def test_kernels_match_plain_on_card():
   a = [torch.from_numpy(inp[k]).to(dev) for k in names]
   for k, p in zip(plk.newton_lanes_pyr_t(1, 6, KIND_S, *a, NAXES),
                   plk.newton_pyr_plain(1, 6, KIND_S, *a, NAXES)):
+    assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+  a = a[:7]  # K4 on the structured rows alone
+  for k, p in zip(plk._newton_lanes_core(KIND_S, 1, 5, *a),
+                  plk.newton_generic_plain(KIND_S, 1, 5, *a)):
     assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()

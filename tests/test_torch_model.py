@@ -76,7 +76,9 @@ def test_model_matches_jax(name):
   assert [n for n, _ in pm.pairs] == [n for n, _ in jm.pairs]
   for (_, x), (_, y) in zip(pm.pairs, jm.pairs):
     np.testing.assert_array_equal(x, y.arr)
-  assert pm.names == {k: dict(v) for k, v in jm.names}
+  # the port also keeps the keyframe names (the JAX envs ask the MjModel)
+  assert {k: v for k, v in pm.names.items() if k != 'key'} == {
+      k: dict(v) for k, v in jm.names}
 
 
 @pytest.mark.parametrize('variant', ('rsr', 'train'))
@@ -125,9 +127,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         continue
       for mod in mods:
         top = mod.split('.')[0]
-        if top in ('jax', 'jaxlib', 'flax', 'rsr_mjx_tpu'):
+        if top in ('jax', 'jaxlib', 'flax', 'rsr_mjx_tpu', 'ml_collections'):
           bad.append(f'{os.path.relpath(path, ROOT)}:{node.lineno} {mod}')
-  assert len(_port_sources()) > 20
+    # mujoco only inside the functions that compile MJCF, never at import
+    for node in tree.body:
+      if isinstance(node, (ast.Import, ast.ImportFrom)):
+        mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                else [node.module or ''])
+        if any(mod.split('.')[0] == 'mujoco' for mod in mods):
+          bad.append(f'{os.path.relpath(path, ROOT)}:{node.lineno} mujoco')
+  assert len(_port_sources()) > 25
   assert not bad, bad
 
 

@@ -85,10 +85,13 @@ def stages():
     ))
     aout = jax.jit(lambda lv: jA.assemble_lanes(
         jm, lv, basis=True, dyn_lanes=True))(lv)
+    # the same selected contacts expanded into generic rows (what the JAX
+    # package assembles with its basis kernel switched off)
+    gout = jax.jit(lambda lv: jA.assemble_lanes(jm, lv, dyn_lanes=True))(lv)
   finally:
     jlk._INTERPRET = saved
   pm = penvs.load('AirbotCubePushTrain', device='cpu').model
-  return dict(pm=pm, d=d, sl=sl, kout=kout, sout=sout, aout=aout)
+  return dict(pm=pm, d=d, sl=sl, kout=kout, sout=sout, aout=aout, gout=gout)
 
 
 def test_kinematics_lanes(stages):
@@ -124,3 +127,29 @@ def test_assemble_lanes_basis(stages):
     _close(p, j, name)
   # the reset batch has the cube resting on the table: contacts selected
   assert (out[4] < 0.005).sum() >= 4 * B
+
+
+def test_assemble_lanes_generic_rows_of_selected_contacts(stages):
+  """Selection on, basis off: the 24 selected contacts as 144 generic rows
+  after the 37 structured ones (the input of kernel K4 on this model)."""
+  pm, kout, sl = stages['pm'], stages['kout'], stages['sl']
+  lv = pC.gather_leaves(pm, _t(sl.qpos), _t(sl.qvel), _t(kout.cdof),
+                        _t(kout.cdof_anchor), _t(kout.geom_xpos),
+                        _t(kout.geom_xmat))
+  out = pA.assemble_lanes(pm, lv, basis=False)
+  assert len(out) == 5
+  for name, p, j in zip(('J', 'aref', 'D', 'floss', 'dist'), out,
+                        stages['gout']):
+    _close(p, j, name)
+  J = out[0]
+  assert J.shape == (20, 181, B)
+  # row (contact c, axis i, ±) is Jn_c ± mu_i A_i_c of the basis form
+  J_s, _, _, _, _, U, _, _, naxes = pA.assemble_lanes(pm, lv, basis=True)
+  np.testing.assert_array_equal(J[:, :37].numpy(), J_s.numpy())
+  Un, Ua = U[:, :24], U[:, 24:].reshape(20, 3, 24, B)
+  Jc = J[:, 37:].reshape(20, 24, 3, 2, B)
+  for i in range(naxes):
+    np.testing.assert_allclose(Jc[:, :, i, 0].numpy(),
+                               (Un + Ua[:, i]).numpy(), atol=1e-6)
+    np.testing.assert_allclose(Jc[:, :, i, 1].numpy(),
+                               (Un - Ua[:, i]).numpy(), atol=1e-6)

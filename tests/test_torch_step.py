@@ -73,7 +73,7 @@ def test_step_matches_jax(monkeypatch):
   plk.LAUNCHES.update(dict.fromkeys(plk.LAUNCHES, 0))
   pout = pphysics.step(pm, port_data(pm, jd))
   # the CPU tensors took the plain versions: no kernel launched
-  assert list(plk.LAUNCHES.values()) == [0, 0, 0]
+  assert not any(plk.LAUNCHES.values())
 
   for f in SMOOTH:
     assert_close(getattr(pout, f), getattr(jout, f), f, 1e-4, 1e-5)

@@ -1,8 +1,9 @@
 """Run the PyTorch/H100 port on one card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
-Run from the root of the repository.  It imports the port
+Run from the root of the repository.  ``--kernels-only`` stops after phase 2
+and prints no result line (for work on a kernel).  It imports the port
 (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Two served paths
 are driven, each through ``envs.load`` → ``wrap_for_training`` → ``env.step``
 with a trained policy run deterministically: cube-push
@@ -22,8 +23,18 @@ non-zero before the result line is printed:
               K4 _newton_lanes_core on the Go2 rows at the Go2 schedule
               (1 x 5) and at 6 x 6, and on the cube-push model's generic
               rows (basis off, nv 20) at 6 x 6, where its objective is also
-              held beside K3's.  Times of the kernel, the plain version
-              and, for K1 and K2, one PyTorch library call.
+              held beside K3's and its time is taken.  K3 and K4 also on
+              their recorded inputs cut by 3 envs (a batch that is no
+              multiple of the envs per block), same criteria.  Times of
+              the kernel, the plain version and, for K1 and K2, one PyTorch
+              library call; for the two Newton kernels also the device time
+              by kernel name from torch.profiler (CUDA events over
+              back-to-back launches include the wrapper's host time), that
+              time at each number of envs per block, and at the schedules
+              0 x 0, 1 x 0, 1 x ls, iters x ls (load and store, one Newton
+              step, one line-search step).  Both Newton kernels also at
+              widths and axes that are not compiled in (seeded systems,
+              see check_runtime_widths).
   3. paths    for each path: 256 envs of the batch run 3 control steps on
               the card, on the CPU (plain versions) and on the CPU in
               float64; the card must be as close to float64 as the CPU's
@@ -114,6 +125,72 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
   end.record()
   end.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def profiler_ms(torch, fn, reps: int, kernel_name: str) -> float:
+  """Mean device time of the kernels whose name contains ``kernel_name``
+  over reps calls of fn(), from torch.profiler: the kernel alone, without
+  the host time between launches that CUDA events include.  A trace that
+  does not hold all reps launches is taken again; after three such traces
+  the CUDA-event time is returned instead, and a line says so."""
+  from torch.profiler import ProfilerActivity, profile
+
+  fn()
+  for _ in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel_name in e.key]
+    count = sum(e.count for e in hits)
+    if count == reps:
+      return sum(e.self_device_time_total for e in hits) / 1e3 / count
+  log(f'profiler: {count} launches of {kernel_name} traced, expected {reps}; '
+      'CUDA-event time used instead')
+  return time_ms(torch, fn, reps)
+
+
+def schedule_split(torch, tag, run, iters: int, ls_iters: int,
+                   kernel_name: str) -> None:
+  """Device times of a Newton kernel (torch.profiler, by kernel name: at
+  0 x 0 the wrapper's host time per launch exceeds the kernel's) at the
+  schedules 0 x 0, 1 x 0, 1 x ls and iters x ls on the same inputs
+  (``run(iters, ls_iters)`` launches it): the differences are the time of
+  load and store, of one Newton step without line search, and of one
+  line-search step."""
+  scheds = [(0, 0), (1, 0), (1, ls_iters)]
+  if iters > 1:
+    scheds.append((iters, ls_iters))
+  ms = {s: profiler_ms(torch, lambda s=s: run(*s), 20, kernel_name)
+        for s in scheds}
+  log(f'{tag} schedule split, profiler ms: ' + ', '.join(
+      f'{a} x {b} {t:.5f}' for (a, b), t in ms.items())
+      + f'; load+store {ms[0, 0]:.5f}, Newton step without line search '
+      f'{ms[1, 0] - ms[0, 0]:.5f}, one line-search step '
+      f'{(ms[1, ls_iters] - ms[1, 0]) / max(ls_iters, 1):.5f}')
+
+
+def e_sweep(torch, lk, tag, fn, kernel_name: str) -> None:
+  """Device time (torch.profiler) of a Newton kernel at each E (envs per
+  block) whose working set fits, and the E the wrapper chooses; fn()
+  launches it."""
+  chooser = lk.newton_envs_per_block
+  seen, times = {}, {}
+  try:
+    for E in (None, 8, 4, 2, 1):  # None: the wrapper's own choice
+      def pick(smem_bytes, B, n_sm, _E=E):
+        seen['chosen'] = chooser(smem_bytes, B, n_sm)
+        seen['fits'] = _E is None or smem_bytes(_E) <= lk._SMEM_LIMIT
+        return _E if _E and seen['fits'] else seen['chosen']
+      lk.newton_envs_per_block = pick
+      t = profiler_ms(torch, fn, 20, kernel_name)
+      if E and seen['fits']:
+        times[E] = t
+  finally:
+    lk.newton_envs_per_block = chooser
+  log(f'{tag} envs per block: chosen E {seen["chosen"]}; profiler ms by E: '
+      + ', '.join(f'E {E} {t:.5f}' for E, t in times.items()))
 
 
 # -- the least work of each kernel, from its inputs ------------------------
@@ -266,6 +343,14 @@ def worst(err, tol):
   return (err / tol).max().item()
 
 
+def worst_kernel(torch, err, tol, err_plain):
+  """The kernel's worst error/tolerance.  Where the plain fp32 version
+  itself misses the tolerance against float64 (a step that fp32 rounding
+  rejects and float64 accepts: the criterion's fault, not a kernel's), the
+  kernel is held to twice the plain version's miss instead."""
+  return worst(err, torch.where(err_plain > tol, 2 * err_plain, tol))
+
+
 def k1_row(torch, lk, systems):
   """K1 on each (A, b) of ``systems``: per env max|k − p| <= 1e-5·max|p| +
   1e-6, and the normwise backward error ‖Ax − b‖ / (‖A‖‖x‖ + ‖b‖), in
@@ -333,7 +418,9 @@ def k4_ratios(torch, lk, args, schedules):
      the plain version run for 0 steps from xk in float64;
    - qfrc: |qk − Jᵀfk| <= 64·u·|J|ᵀ|fk|.
   Returns (max |kernel − plain|, {(who, schedule): (φ, force, qfrc) worst
-  error/tolerance over envs}) for the kernel and the plain fp32 version."""
+  error/tolerance over envs}) for the kernel and the plain fp32 version.
+  Only the kernel's ratios decide; see worst_kernel for the envs in which
+  the plain version itself misses."""
   kind = args[0]
   a64 = [a.double() for a in args[3:]]
   Jt, areft, Dt = a64[3], a64[4], a64[5]
@@ -343,8 +430,8 @@ def k4_ratios(torch, lk, args, schedules):
     x64 = lk.newton_generic_plain(kind, *sched, *a64)[0]
     phi64 = k4_cost(torch, lk, args, x64)
     tol_phi = (1e-5 if sched[0] == 1 else 1e-6) * phi0 + 1e-30
-    outs = {'kernel': lk._newton_lanes_core(kind, *sched, *args[3:]),
-            'plain': lk.newton_generic_plain(kind, *sched, *args[3:])}
+    outs = {'plain': lk.newton_generic_plain(kind, *sched, *args[3:]),
+            'kernel': lk._newton_lanes_core(kind, *sched, *args[3:])}
     err = max([err] + [(k - p).abs().max().item()
                        for k, p in zip(outs['kernel'], outs['plain'])])
     for who, out in outs.items():
@@ -355,10 +442,16 @@ def k4_ratios(torch, lk, args, schedules):
                                  + areft.abs()) + 1e-30
       proj = (Jt * force[None]).sum(1)
       tol_q = 64 * U32 * (Jt.abs() * force.abs()[None]).sum(1) + 1e-30
-      ratios[who, sched] = (
-          worst(k4_cost(torch, lk, args, x) - phi64, tol_phi),
-          worst((force - f_x).abs(), tol_f),
-          worst((qfrc - proj).abs(), tol_q))
+      errs = (k4_cost(torch, lk, args, x) - phi64, (force - f_x).abs(),
+              (qfrc - proj).abs())
+      tols = (tol_phi, tol_f, tol_q)
+      if who == 'plain':
+        plain_errs = errs
+        ratios[who, sched] = tuple(worst(e, t) for e, t in zip(errs, tols))
+      else:
+        ratios[who, sched] = tuple(
+            worst_kernel(torch, e, t, p)
+            for e, t, p in zip(errs, tols, plain_errs))
   return err, ratios
 
 
@@ -388,15 +481,43 @@ def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
   log(f'K4 against K3 on the same cube-push states, 6 x 6: '
       f'|phi(x_K4) - phi(x_K3)| / phi(x0) per env max {gap.max().item():.3g} '
       f'median {gap.median().item():.3g}')
-  cube_ok = max(max(r) for r in cratios.values()) <= 1.0
+  kernel_ok = lambda rs: max(
+      max(r) for (who, _), r in rs.items() if who == 'kernel') <= 1.0
+  cube_ok = kernel_ok(cratios)
+  # the same on batches that are no multiple of the envs per block
+  for tag, a, scheds in (('Go2 rows', go2_args, [sched]),
+                         ('cube-push generic rows', cube_args, [(6, 6)])):
+    cut = ragged(torch, a)
+    rerr, rratios = k4_ratios(torch, lk, cut, scheds)
+    log(f'K4 on a ragged batch of the {tag} (B {cut[6].shape[-1]}): max '
+        f'|kernel - plain| {rerr:.3e}; {fmt_ratios(rratios)} '
+        f'{"ok" if kernel_ok(rratios) else "FAIL"}')
+    cube_ok = cube_ok and kernel_ok(rratios)
   # the two assemblies pose one problem: the objectives must agree to 1e-4
   # of the start's in the median env (a handful of envs are ill-conditioned)
   cube_ok = cube_ok and gap.median().item() <= 1e-4
-  kind = go2_args[0]
+  run = lambda a: (lambda it, ls: lk._newton_lanes_core(a[0], it, ls, *a[3:]))
+  name = 'newton_generic_kernel'
+  e_sweep(torch, lk, 'K4 Go2', lambda: lk._newton_lanes_core(*go2_args), name)
+  e_sweep(torch, lk, 'K4 cube-push generic rows',
+          lambda: lk._newton_lanes_core(*cube_args), name)
+  schedule_split(torch, 'K4 Go2', run(go2_args), *sched, name)
+  schedule_split(torch, 'K4 cube-push generic rows', run(cube_args), 6, 6,
+                 name)
+  cube_ms = time_ms(torch, lambda: lk._newton_lanes_core(*cube_args), 20)
+  cube_prof = profiler_ms(torch, lambda: lk._newton_lanes_core(*cube_args),
+                          20, 'newton_generic_kernel')
+  cube_bound = bound_ms(*k4_work(*cube_args))
+  log(f'K4 on the cube-push generic rows, 6 x 6: kernel_ms {cube_ms:.5f} '
+      f'(profiler {cube_prof:.5f}) bound_ms {cube_bound[0]:.5f} '
+      f'({cube_bound[1]})')
   return dict(
       max_abs_err=err,
-      ok=max(max(r) for r in ratios.values()) <= 1.0 and cube_ok,
-      ratios=fmt_ratios(ratios) + ('' if cube_ok else ' (cube rows FAIL)'),
+      profiler_ms=profiler_ms(torch, lambda: lk._newton_lanes_core(*go2_args),
+                              50, 'newton_generic_kernel'),
+      ok=kernel_ok(ratios) and cube_ok,
+      ratios=fmt_ratios(ratios) + (
+          '' if cube_ok else ' (cube rows or a ragged batch FAIL)'),
       work=k4_work(*go2_args),
       ms=time_ms(torch, lambda: lk._newton_lanes_core(*go2_args), 50),
       plain_ms=time_ms(torch, lambda: lk.newton_generic_plain(*go2_args), 5,
@@ -405,9 +526,120 @@ def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
       note=f'nv {go2_args[6].shape[0]}, R0 {go2_args[6].shape[1]}, B '
            f'{go2_args[6].shape[2]}, schedule {sched[0]} x {sched[1]}; per '
            'env, at each schedule: phi(xk) within 1e-5 (1 Newton step) or '
-           '1e-6 (6 steps) of the float64 solve; force and qfrc those of xk and of the force to fp32 '
-           'rounding (1024u, 64u of their sums)',
+           '1e-6 (6 steps) of the float64 solve; force and qfrc those of xk '
+           'and of the force to fp32 rounding (1024u, 64u of their sums)',
   )
+
+
+def k3_ratios(torch, lk, args):
+  """K3 on one system (the arguments of ``newton_lanes_pyr_t``), per env,
+  after 1 Newton step and after the full schedule, under the criteria set
+  out in check_kernels.  Returns (max |kernel − plain|, {(who, steps): (φ,
+  force, qfrc) worst error/tolerance over envs})."""
+  f64 = lambda a: a.double() if torch.is_tensor(a) else a
+  outk = lk.newton_lanes_pyr_t(*args)
+  outp = lk.newton_pyr_plain(*args)
+  err = max((a - b).abs().max().item() for a, b in zip(outk, outp))
+  a64 = [f64(a) for a in args]
+  phi0 = k3_cost(torch, lk, args, args[5])
+  ratios = {}
+  for iters in (1, args[0]):
+    a_it = (iters,) + tuple(args[1:])
+    phi64 = k3_cost(torch, lk, args, lk.newton_pyr_plain(
+        iters, *a64[1:])[0])
+    tol_phi = 1e-6 * (phi0 - phi64 + phi64) + 1e-30
+    for who, outs in (('plain', lk.newton_pyr_plain(*a_it)),
+                      ('kernel', lk.newton_lanes_pyr_t(*a_it))):
+      x, force, qfrc = (o.double() for o in outs)
+      f_x = lk.newton_pyr_plain(0, args[1], args[2], a64[3], a64[4], x,
+                                *a64[6:])[1]
+      tol_f = 1024 * U32 * k3_force_scale(torch, args, x) + 1e-30
+      fs, w = k3_split(torch, args, force)
+      Js, U = a64[6], a64[10]
+      proj = (Js * fs[None]).sum(1) + (U * w[None]).sum(1)
+      tol_q = 64 * U32 * ((Js.abs() * fs.abs()[None]).sum(1)
+                          + (U.abs() * w.abs()[None]).sum(1)) + 1e-30
+      errs = (k3_cost(torch, lk, args, x) - phi64, (force - f_x).abs(),
+              (qfrc - proj).abs())
+      tols = (tol_phi, tol_f, tol_q)
+      if who == 'plain':
+        plain_errs = errs
+        ratios[who, iters] = tuple(worst(e, t) for e, t in zip(errs, tols))
+      else:
+        ratios[who, iters] = tuple(
+            worst_kernel(torch, e, t, p)
+            for e, t, p in zip(errs, tols, plain_errs))
+  return err, ratios
+
+
+def ragged(torch, args, drop: int = 3):
+  """The recorded arguments of a Newton wrapper with the last ``drop`` envs
+  cut off and made contiguous: a batch that is no multiple of the envs per
+  block."""
+  return tuple(a[..., :-drop].contiguous() if torch.is_tensor(a) else a
+               for a in args)
+
+
+def seeded_system(torch, rng, nv, Rs, C, naxes, B):
+  """A seeded system for the Newton wrappers: SPD M, every row kind (one
+  equality row, friction rows of which one is inert, limits), separated
+  contacts among the C.  Returns (kind_s, K3's tensor arguments)."""
+  import numpy as np
+
+  n_fric = (Rs - 1) // 2
+  kind_s = np.array([0] + [1] * n_fric + [2] * (Rs - 1 - n_fric), np.int32)
+  A = rng.normal(size=(B, nv, nv))
+  M = A @ np.swapaxes(A, 1, 2) / nv + 0.55 * np.eye(nv)
+  fls = np.where(kind_s[:, None] == 1, rng.uniform(0, 2, size=(Rs, B)), 0.0)
+  fls[1] = 0.0
+  Dc = rng.uniform(1.0, 50.0, size=(C, B))
+  Dc[::5] = 0.0
+  NU = (naxes + 1) * C
+  arrs = (np.transpose(M, (1, 2, 0)), rng.normal(size=(nv, B)),
+          0.1 * rng.normal(size=(nv, B)), 0.5 * rng.normal(size=(nv, Rs, B)),
+          rng.normal(size=(Rs, B)), rng.uniform(1.0, 50.0, size=(Rs, B)), fls,
+          0.3 * rng.normal(size=(nv, NU, B)), rng.normal(size=(NU, B)), Dc)
+  return kind_s, tuple(
+      torch.tensor(np.ascontiguousarray(a), dtype=torch.float32, device=DEV)
+      for a in arrs)
+
+
+def check_runtime_widths(torch, lk):
+  """The Newton kernels where the width or the number of axes is not one
+  compiled in (the same source with nv and naxes at run time, the Cholesky
+  in shared memory; past nv 32 a lane owns two rows of H), on seeded
+  systems at a batch that is no multiple of any E: each output within
+  1e-4 of its scale of the plain version's after one Newton step (fp32
+  sums in another order; the systems are well conditioned and start
+  cold, so no accept is marginal)."""
+  import numpy as np
+
+  rng = np.random.default_rng(SEED)
+  B, worst_ratio, parts = 301, 0.0, []
+  cases = [('K3', 7, 9, 5, 2), ('K3', 20, 37, 24, 2), ('K3', 31, 12, 6, 3),
+           ('K4', 7, 9, 0, 0), ('K4', 33, 40, 0, 0), ('K4', 64, 70, 0, 0)]
+  for which, nv, Rs, C, naxes in cases:
+    kind_s, a = seeded_system(torch, rng, nv, Rs, max(C, 1), max(naxes, 1), B)
+    if which == 'K3':
+      outs = (lk.newton_lanes_pyr_t(1, 6, kind_s, *a, naxes),
+              lk.newton_pyr_plain(1, 6, kind_s, *a, naxes))
+    else:
+      outs = (lk._newton_lanes_core(kind_s, 1, 5, *a[:7]),
+              lk.newton_generic_plain(kind_s, 1, 5, *a[:7]))
+    ratio = max(((k - p).abs().max() / (1e-4 * p.abs().max())).item()
+                for k, p in zip(*outs))
+    if not all(bool(torch.isfinite(k).all().item()) for k in outs[0]):
+      ratio = float('inf')
+    parts.append(f'{which} nv {nv} rows {Rs}'
+                 + (f' C {C} naxes {naxes}' if which == 'K3' else '')
+                 + f' {ratio:.3g}')
+    worst_ratio = max(worst_ratio, ratio)
+  ok = worst_ratio <= 1.0
+  log(f'Newton kernels at widths not compiled in, B {B}, 1 Newton step: '
+      f'max |kernel - plain| / (1e-4 max |plain|): ' + ', '.join(parts)
+      + (' ok' if ok else ' FAIL'))
+  if not ok:
+    raise SystemExit('a Newton kernel disagrees at a width not compiled in')
 
 
 def check_kernels(torch, lk, calls):
@@ -462,38 +694,23 @@ def check_kernels(torch, lk, calls):
   #    the plain version run for 0 steps from xk in float64;
   #  - qfrc: |qk − (Jᵀfk + Uᵀw(fk))| <= 64·u·(|J|ᵀ|fk| + |U|ᵀ|w(fk)|).
   args = calls['newton_lanes_pyr_t'][-1]
-  outk = lk.newton_lanes_pyr_t(*args)
-  outp = lk.newton_pyr_plain(*args)
-  err = max((a - b).abs().max().item() for a, b in zip(outk, outp))
-  a64 = [f64(a) for a in args]
-  phi0 = k3_cost(torch, lk, args, args[5])
-  ratios = {}
-  for iters in (1, args[0]):
-    a_it = (iters,) + tuple(args[1:])
-    phi64 = k3_cost(torch, lk, args, lk.newton_pyr_plain(
-        iters, *a64[1:])[0])
-    tol_phi = 1e-6 * (phi0 - phi64 + phi64) + 1e-30
-    for who, outs in (('kernel', lk.newton_lanes_pyr_t(*a_it)),
-                      ('plain', lk.newton_pyr_plain(*a_it))):
-      x, force, qfrc = (o.double() for o in outs)
-      f_x = lk.newton_pyr_plain(0, args[1], args[2], a64[3], a64[4], x,
-                                *a64[6:])[1]
-      tol_f = 1024 * U32 * k3_force_scale(torch, args, x) + 1e-30
-      fs, w = k3_split(torch, args, force)
-      Js, U = a64[6], a64[10]
-      proj = (Js * fs[None]).sum(1) + (U * w[None]).sum(1)
-      tol_q = 64 * U32 * ((Js.abs() * fs.abs()[None]).sum(1)
-                          + (U.abs() * w.abs()[None]).sum(1)) + 1e-30
-      ratios[who, iters] = (
-          worst(k3_cost(torch, lk, args, x) - phi64, tol_phi),
-          worst((force - f_x).abs(), tol_f),
-          worst((qfrc - proj).abs(), tol_q))
+  err, ratios = k3_ratios(torch, lk, args)
   fmt = lambda r: '/'.join(f'{v:.3g}' for v in r)
+  fmt_all = lambda rs: 'phi/force/qfrc ' + ', '.join(
+      f'{who} {it} step{"s" if it > 1 else ""} {fmt(r)}'
+      for (who, it), r in rs.items())
+  kernel_ok = lambda rs: max(
+      max(r) for (who, _), r in rs.items() if who == 'kernel') <= 1.0
+  # the same on a batch that is no multiple of the envs per block
+  cut = ragged(torch, args)
+  rerr, rratios = k3_ratios(torch, lk, cut)
+  log(f'K3 on a ragged batch (B {cut[3].shape[-1]}): max |kernel - plain| '
+      f'{rerr:.3e}; {fmt_all(rratios)} '
+      f'{"ok" if kernel_ok(rratios) else "FAIL"}')
   rows['newton_lanes_pyr_t'] = dict(
-      max_abs_err=err, ok=max(max(r) for r in ratios.values()) <= 1.0,
-      ratios='phi/force/qfrc ' + ', '.join(
-          f'{who} {it} step{"s" if it > 1 else ""} {fmt(r)}'
-          for (who, it), r in ratios.items()),
+      max_abs_err=err,
+      ok=kernel_ok(ratios) and kernel_ok(rratios),
+      ratios=fmt_all(ratios),
       work=k3_work(*args),
       ms=time_ms(torch, lambda: lk.newton_lanes_pyr_t(*args), 20),
       plain_ms=time_ms(torch, lambda: lk.newton_pyr_plain(*args), 3, 1),
@@ -501,7 +718,14 @@ def check_kernels(torch, lk, calls):
       note='per env, after 1 and 6 Newton steps: phi(xk) within 1e-6 of '
            'the float64 solve; force and qfrc those of xk and of the force '
            'to fp32 rounding (1024u, 64u of their sums)',
+      profiler_ms=profiler_ms(torch, lambda: lk.newton_lanes_pyr_t(*args),
+                              20, 'newton_pyr_kernel'),
   )
+  e_sweep(torch, lk, 'K3 cube-push',
+          lambda: lk.newton_lanes_pyr_t(*args), 'newton_pyr_kernel')
+  schedule_split(torch, 'K3 cube-push',
+                 lambda it, ls: lk.newton_lanes_pyr_t(it, ls, *args[2:]),
+                 args[0], args[1], 'newton_pyr_kernel')
 
   return rows
 
@@ -515,7 +739,8 @@ def report(rows):
     log(f'{short}{name}: max |kernel - plain| {r["max_abs_err"]:.3e}; '
         f'{r["note"]}; worst error/tolerance over envs: {r["ratios"]} '
         f'{"ok" if r["ok"] else "FAIL"}; kernel_ms {r["ms"]:.5f} '
-        f'plain_ms {r["plain_ms"]:.5f} library_ms {r["library_ms"]} '
+        + (f'(profiler {r["profiler_ms"]:.5f}) ' if 'profiler_ms' in r else '')
+        + f'plain_ms {r["plain_ms"]:.5f} library_ms {r["library_ms"]} '
         f'bound_ms {r["bound_ms"]:.5f} ({r["bound_by"]})')
     if not r['ok']:
       failed.append(name)
@@ -786,6 +1011,7 @@ def main() -> int:
   state = env.reset(gen)
   calls = record_calls(lk, lambda: env.step(state, policy(state.obs)))
   rows = check_kernels(torch, lk, calls)
+  check_runtime_widths(torch, lk)
   # one cube-push state through both assemblies: the basis (K3) and the
   # same selected contacts as generic rows (K4)
   m, d0 = env0.model, state.data
@@ -818,6 +1044,9 @@ def main() -> int:
   rows['K1 at nv 18 (Go2)'] = k1_row(torch, lk, calls['spd_solve_lanes'][-2:])
   del calls, cube_k3, cube_k4
   report(rows)
+  if '--kernels-only' in sys.argv[1:]:
+    log('kernels-only: stopped after phase 2 (no result line)')
+    return 0
 
   # -- 3. the two paths: reference, rollout, profile
   n = REF_ENVS

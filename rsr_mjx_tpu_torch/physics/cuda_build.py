@@ -26,8 +26,8 @@ SIGNATURES = {
     'spd_solve': ('spd_solve_lanes_launch', [P, P, P, I, I, F, P]),
     'contact_select': ('contact_select_launch',
                        [P, P, P, P, P, I, I, I, I, I, P]),
-    'newton_pyr': ('newton_pyr_launch', [P] * 16 + [I] * 7 + [P]),
-    'newton_generic': ('newton_generic_launch', [P] * 12 + [I] * 5 + [P]),
+    'newton_pyr': ('newton_pyr_launch', [P] * 16 + [I] * 8 + [P]),
+    'newton_generic': ('newton_generic_launch', [P] * 12 + [I] * 6 + [P]),
 }
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']

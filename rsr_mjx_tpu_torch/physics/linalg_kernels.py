@@ -40,8 +40,13 @@ _LIMIT = 2
 _CONTACT = 3
 
 # shared memory one block may use on sm_90 (227 KB), the limit of the two
-# Newton kernels, which keep one env's whole system in it
+# Newton kernels, which keep the whole systems of a block's envs in it
 _SMEM_LIMIT = 232448
+# streaming multiprocessors of an H100 SXM: the default of the E chooser
+# (the wrappers pass the card's own count)
+_H100_SMS = 132
+# scratch of the Jᵀs products of the Newton kernels (kPartWords), words
+_PART_WORDS = 128
 
 
 # kernel launches of each wrapper; zero them with
@@ -88,6 +93,42 @@ def _launch(lib: str, *args) -> None:
 
 def _stream() -> int:
   return torch.cuda.current_stream().cuda_stream
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+  return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# Shared-memory layout of the two Newton kernels (``csrc/newton_common.cuh``):
+# a warp per env, E consecutive envs per block, each env's working set at a
+# stride that is 4 mod 32 words, the two row masks once per block.  These
+# functions repeat the ``Layout`` structs of the sources word for word, so
+# that the size guards and the choice of E are reached by the CPU tests.
+# ---------------------------------------------------------------------------
+
+
+def _env_stride(words: int, E: int) -> int:
+  """Per-env stride in a block of E envs: the next value >= ``words`` that
+  is 4 mod 32; a single env is only rounded up to 4."""
+  return (words + 3) // 4 * 4 if E == 1 else (words + 27) // 32 * 32 + 4
+
+
+def newton_envs_per_block(smem_bytes, B: int, n_sm: int = _H100_SMS) -> int:
+  """E, the envs one block of a Newton kernel takes: the largest of 8, 4, 2,
+  1 whose working set ``smem_bytes(E)`` fits the 232448 bytes of a block and
+  which still gives every SM a block (ceil(B / E) >= n_sm); E = 1 whenever
+  the batch is too small for that.  Raises if a single env does not fit."""
+  fits = [E for E in (8, 4, 2, 1) if smem_bytes(E) <= _SMEM_LIMIT]
+  if not fits:
+    raise ValueError(
+        f'one env needs {smem_bytes(1)} bytes of shared memory '
+        f'(limit {_SMEM_LIMIT})')
+  for E in fits:
+    if -(-B // E) >= n_sm:
+      return E
+  return fits[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -257,12 +298,40 @@ def contact_select_lanes(pair_struct: tuple, nsel: int, dist_l: torch.Tensor,
 # [0, 4], monotone accept only when Δφ < 0 (so a NaN step is rejected).
 # Bound on the H100: fp32 operations outside the tensor cores.  Per env
 # and iteration the Hessian alone is nv(nv+1)/2 · (Rs + (naxes+1)·C) MACs
-# (210 · 133 on cube-push); the inputs are ≈ 12 KB per env.  Design: one
-# block per env, J, U, W, M and H in shared memory, threads over rows for
-# the matvecs and over the (a ≥ b) pairs for the Hessian, the Cholesky
-# serial over columns with threads over rows, both loops inside the
-# kernel.  Rows are not padded (the TPU's 8-row tiles have no counterpart).
+# (210 · 133 on cube-push); the inputs are ≈ 12 KB per env.  Design: a warp
+# per env, E envs per block (``newton_envs_per_block``), loaded with the env
+# index fastest across threads; Jᵀ, Uᵀ, M and H in shared memory (W = U·S is
+# formed in registers); the Hessian from 4 × 4 register tiles of its lower
+# triangle; the Cholesky with a lane per row and column-oriented triangular
+# solves; shuffle reductions for every sum, no block barrier in the Newton
+# loop.  Rows are not padded (the TPU's 8-row tiles have no counterpart).
 # ---------------------------------------------------------------------------
+
+
+def newton_pyr_smem_bytes(nv: int, Rs: int, C: int, naxes: int,
+                          E: int = 1) -> int:
+  """Shared memory a block of K3 with E envs needs (the layout of
+  ``csrc/newton_pyr.cu``).  Per env, in float32 words: Jᵀ (Rs·nvp), Uᵀ
+  (NU·nvp), eight dof vectors (nvp), the 128 words of the Jᵀs shares, M and
+  H (nv·ldm each), seven structured-row vectors, four basis vectors, Dc and the 1 + 2·naxes
+  coefficients per contact, with nvp = nv rounded up to 4, ldm = nv | 1 and
+  NU = (naxes + 1)·C, at a stride that is 4 mod 32; plus the two row masks
+  once per block."""
+  nvp, ldm, NU = (nv + 3) // 4 * 4, nv | 1, (naxes + 1) * C
+  words = ((Rs + NU) * nvp + 8 * nvp + _PART_WORDS + 2 * nv * ldm + 7 * Rs
+           + 4 * NU + C + C * (1 + 2 * naxes))
+  return 4 * (E * _env_stride(words, E) + 2 * Rs)
+
+
+def check_newton_pyr_fits(nv: int, Rs: int, C: int, naxes: int) -> None:
+  """Raise unless K3 takes the system: nv <= 32 (a lane per row of H) and one
+  env's working set within the 232448 bytes of shared memory of a block."""
+  smem = newton_pyr_smem_bytes(nv, Rs, C, naxes)
+  if nv > 32 or smem > _SMEM_LIMIT:
+    raise ValueError(
+        f'newton_lanes_pyr_t kernel: a system of nv={nv}, Rs={Rs}, C={C}, '
+        f'naxes={naxes} needs {smem} bytes of shared memory per env (limit '
+        f'{_SMEM_LIMIT}, nv <= 32)')
 
 
 @functools.lru_cache(maxsize=16)
@@ -444,7 +513,11 @@ def newton_lanes_pyr_t(iterations: int, ls_iterations: int,
   arefs/Ds/fls (Rs, B) and static kinds ``kind_s`` (Rs,); contact basis
   U (nv, (naxes+1)·C, B) grouped [Jn | μ₁A₁ | …], arefU likewise, Dc (C, B).
   Returns (x (nv, B), force (Rs + 2·naxes·C, B) in row order
-  [structured | contact, axis, ±], qfrc (nv, B))."""
+  [structured | contact, axis, ±], qfrc (nv, B)).
+
+  The CUDA route takes nv <= 32 and a system whose single env fits the
+  232448 bytes of shared memory of a block (``check_newton_pyr_fits``; the
+  cube-push system takes 18792 bytes alone and 148904 at E = 8)."""
   nv, Rs, B = Js.shape
   C = Dc.shape[0]
   NU = (naxes + 1) * C
@@ -460,8 +533,9 @@ def newton_lanes_pyr_t(iterations: int, ls_iterations: int,
   if _route(Mt) == 'plain':
     return newton_pyr_plain(iterations, ls_iterations, kind_s, Mt, a0t, x0t,
                             Js, arefs, Ds, fls, U, arefU, Dc, naxes)
-  if nv > 32:
-    raise ValueError(f'newton_lanes_pyr_t kernel takes nv <= 32, got {nv}')
+  check_newton_pyr_fits(nv, Rs, C, naxes)
+  E = newton_envs_per_block(
+      lambda E: newton_pyr_smem_bytes(nv, Rs, C, naxes, E), B, _sm_count(dev))
   ones_m, fric_m = _row_masks(tuple(np.asarray(kind_s).tolist()), dev,
                               torch.float32)
   x = torch.empty((nv, B), dtype=torch.float32, device=dev)
@@ -472,7 +546,7 @@ def newton_lanes_pyr_t(iterations: int, ls_iterations: int,
   _launch('newton_pyr', *(a.data_ptr() for a in (
       Mt, a0t, x0t, Js, arefs, Ds, fls, ones_m, fric_m, U, arefU, Dc,
       x, fs, fc, qf)), nv, Rs, C, naxes, int(iterations), int(ls_iterations),
-          B, _stream())
+          B, E, _stream())
   return x, _force_rows(fs, fc), qf
 
 
@@ -488,24 +562,30 @@ def newton_lanes_pyr_t(iterations: int, ls_iterations: int,
 # Bound on the H100: fp32 operations outside the tensor cores at a deep
 # schedule (per env and Newton step the Hessian is nv(nv+1)/2 · R
 # multiply-adds), bytes at the Go2 schedule of one step (nv·R + nv² + … words
-# read once per env, ≈ 6 KB at nv 18, R 58).  Design: one block per env, J,
-# M and H in shared memory, threads over rows for the matvecs and over the
-# (a ≥ b) pairs for the Hessian, the Cholesky serial over columns, both
-# loops inside the kernel.  Rows are not padded with inert friction rows
-# and the batch is not padded with identity systems, as the TPU wrapper did.
+# read once per env, ≈ 6 KB at nv 18, R 58).  Design: that of K3 without the
+# basis (``csrc/newton_common.cuh``): a warp per env, E envs per block loaded
+# with the env index fastest across threads, so that the batch-minor arrays
+# are read in whole sectors; the Hessian from register tiles; the Cholesky
+# and the triangular solves inside the warp (a lane owns rows i and i + 32
+# when nv > 32).  Rows are not padded with inert friction rows and the batch
+# is not padded with identity systems, as the TPU wrapper did.
 # ---------------------------------------------------------------------------
 
 
-def newton_generic_smem_bytes(nv: int, R: int) -> int:
-  """Shared memory one block of K4 needs for a system of nv dofs and R rows
-  (the layout of ``csrc/newton_generic.cu``): M, H (nv²), J (nv·R), nine row
-  vectors, nine dof vectors and the reduction scratch, in float32."""
-  return 4 * (2 * nv * nv + nv * R + 9 * R + 9 * nv + 8)
+def newton_generic_smem_bytes(nv: int, R: int, E: int = 1) -> int:
+  """Shared memory a block of K4 with E envs needs for systems of nv dofs
+  and R rows (the layout of ``csrc/newton_generic.cu``).  Per env, in
+  float32 words: Jᵀ (R·nvp), eight dof vectors (nvp), the 128 words of the
+  Jᵀs shares, M and H (nv·ldm each) and seven row vectors, with nvp = nv rounded up to 4 and ldm = nv | 1, at
+  a stride that is 4 mod 32; plus the two row masks once per block."""
+  nvp, ldm = (nv + 3) // 4 * 4, nv | 1
+  words = R * nvp + 8 * nvp + _PART_WORDS + 2 * nv * ldm + 7 * R
+  return 4 * (E * _env_stride(words, E) + 2 * R)
 
 
 def check_newton_generic_fits(nv: int, R: int) -> None:
-  """Raise unless K4 takes a system of nv dofs and R rows: its working set
-  must fit the 232448 bytes (227 KB) of shared memory of one block, and
+  """Raise unless K4 takes a system of nv dofs and R rows: one env's working
+  set must fit the 232448 bytes (227 KB) of shared memory of one block, and
   nv <= 64."""
   smem = newton_generic_smem_bytes(nv, R)
   if nv > 64 or smem > _SMEM_LIMIT:
@@ -575,11 +655,13 @@ def _newton_lanes_core(kind: np.ndarray, iterations: int, ls_iterations: int,
   static row kinds ``kind`` (R,).  Returns (x (nv, B), force (R, B),
   qfrc (nv, B)).
 
-  The kernel keeps one env's system in the shared memory of its block:
-  ``newton_generic_smem_bytes(nv, R)`` must not exceed 232448 bytes (227
-  KB), and nv must not exceed 64; past either the CUDA route raises
-  (``check_newton_generic_fits``).  nv 18 with R 58 takes 9536 bytes, nv 20
-  with R 181 takes 24948, and at nv 20 the largest R that fits is 1969."""
+  The kernel keeps the systems of a block's E envs in shared memory
+  (``newton_envs_per_block``): one env's ``newton_generic_smem_bytes(nv, R)``
+  must not exceed 232448 bytes (227 KB), and nv must not exceed 64; past
+  either the CUDA route raises (``check_newton_generic_fits``).  nv 18 with
+  R 58 takes 10624 bytes alone and 82512 at E = 8, nv 20 with R 181 takes
+  25512 and 194088, and at nv 20 the largest R that fits is 1964 at E = 1 and
+  225 at E = 8."""
   nv, R, B = Jt.shape
   dev = Mt.device
   for name, t, shape in (
@@ -593,6 +675,8 @@ def _newton_lanes_core(kind: np.ndarray, iterations: int, ls_iterations: int,
     return newton_generic_plain(kind, iterations, ls_iterations, Mt, a0t, x0t,
                                 Jt, areft, Dt, flt)
   check_newton_generic_fits(nv, R)
+  E = newton_envs_per_block(
+      lambda E: newton_generic_smem_bytes(nv, R, E), B, _sm_count(dev))
   ones_m, fric_m = _row_masks(tuple(np.asarray(kind).tolist()), dev,
                               torch.float32)
   x = torch.empty((nv, B), dtype=torch.float32, device=dev)
@@ -601,5 +685,5 @@ def _newton_lanes_core(kind: np.ndarray, iterations: int, ls_iterations: int,
   LAUNCHES['_newton_lanes_core'] += 1
   _launch('newton_generic', *(a.data_ptr() for a in (
       Mt, a0t, x0t, Jt, areft, Dt, flt, ones_m, fric_m, x, force, qf)),
-          nv, R, int(iterations), int(ls_iterations), B, _stream())
+          nv, R, int(iterations), int(ls_iterations), B, E, _stream())
   return x, force, qf

@@ -13,6 +13,9 @@ tests/test_torch_stages.py; K4 rtol 1e-4 of each output's scale (fp32
 reductions in another order).
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -416,11 +419,14 @@ def test_newton_generic_matches_jax(monkeypatch, models, stages, system,
 def test_newton_generic_size_guard():
   """The guard of the CUDA route: one env's system must fit the 232448
   bytes of shared memory of a block, nv <= 64; it names nv and R0."""
-  assert plk.newton_generic_smem_bytes(18, 58) == 9536
+  assert plk.newton_generic_smem_bytes(18, 58) == 10624
   plk.check_newton_generic_fits(18, 58)
-  plk.check_newton_generic_fits(20, 1969)  # the last R that fits at nv 20
-  with pytest.raises(ValueError, match=r'nv=20, R0=1970'):
-    plk.check_newton_generic_fits(20, 1970)
+  plk.check_newton_generic_fits(20, 1964)  # the last R that fits at nv 20
+  with pytest.raises(ValueError, match=r'nv=20, R0=1965'):
+    plk.check_newton_generic_fits(20, 1965)
+  plk.check_newton_generic_fits(64, 673)  # two rows of H per lane
+  with pytest.raises(ValueError, match=r'nv=64, R0=674'):
+    plk.check_newton_generic_fits(64, 674)
   with pytest.raises(ValueError, match=r'nv=65, R0=8'):
     plk.check_newton_generic_fits(65, 8)
   # the CPU route has no such limit and launches nothing
@@ -430,3 +436,38 @@ def test_newton_generic_size_guard():
     plk._newton_lanes_core(kind[:3], 1, 1, *(torch.from_numpy(a) for a in args))
   plk._newton_lanes_core(kind, 1, 1, *(torch.from_numpy(a) for a in args))
   assert plk.LAUNCHES['_newton_lanes_core'] == 0
+
+
+@pytest.mark.parametrize('E, go2_bytes, cube_bytes, max_r', [
+    (1, 10624, 25512, 1964), (2, 20976, 49608, 996), (4, 41488, 97768, 486),
+    (8, 82512, 194088, 225)])
+def test_newton_generic_smem_bytes(E, go2_bytes, cube_bytes, max_r):
+  """K4's block of E envs: the bytes on the Go2 rows (nv 18, R0 58) and on
+  the cube-push generic rows (nv 20, R0 181), their agreement with the
+  Layout struct of the CUDA source, the stride rule (4 mod 32 words for
+  E > 1), the largest R0 that fits at nv 20, and the E chosen for both
+  paths' batches (8) and for a batch too small to give every SM a block."""
+  assert plk.newton_generic_smem_bytes(18, 58, E) == go2_bytes
+  assert plk.newton_generic_smem_bytes(20, 181, E) == cube_bytes
+  src = open(os.path.join(plk.cuda_build.CSRC, 'newton_generic.cu')).read()
+  body = src[src.index('struct Layout'):src.index('words = o;')]
+  terms = re.findall(r'o \+= ([^;]+);', body)
+  for nv, R, nbytes in ((18, 58, go2_bytes), (20, 181, cube_bytes)):
+    env = dict(nv=nv, R=R, nvp=(nv + 3) // 4 * 4, ldm=nv | 1, kPartWords=128)
+    words = sum(eval(t, {}, env) for t in terms)
+    stride = (nbytes // 4 - 2 * R) // E
+    assert stride >= words and stride - words < (4 if E == 1 else 32)
+    assert stride % 4 == 0 and (E == 1 or stride % 32 == 4)
+  fits = lambda R: plk.newton_generic_smem_bytes(20, R, E) <= 232448
+  assert fits(max_r) and not fits(max_r + 1)
+  go2 = lambda e: plk.newton_generic_smem_bytes(18, 58, e)
+  cube = lambda e: plk.newton_generic_smem_bytes(20, 181, e)
+  assert plk.newton_envs_per_block(go2, 8192) == 8
+  assert plk.newton_envs_per_block(cube, 2048) == 8
+  assert plk.newton_envs_per_block(go2, 132 * E) == E
+  wide = lambda e: plk.newton_generic_smem_bytes(20, max_r + 1, e)
+  if E > 1:  # one row too many for this E: the chooser falls to E / 2
+    assert plk.newton_envs_per_block(wide, 8192) == E // 2
+  else:
+    with pytest.raises(ValueError, match='shared memory'):
+      plk.newton_envs_per_block(wide, 8192)

@@ -10,6 +10,9 @@ held against the same plain versions on the card by ``chip_smoke.py``; the
 last test does that here too when a card is present.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,7 +80,8 @@ def test_contact_select_matches_jax_exactly(ties):
     np.testing.assert_array_equal(sp[:4, :13], feat[[7, 40, 41, 300]])
 
 
-def _newton_inputs(rng):
+def _newton_inputs(rng, nv=NV, b=B):
+  NV, B = nv, b
   f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
   C = NSEL
   M = _spd(rng, NV, B) + 0.5 * np.eye(NV, dtype=np.float32)[:, :, None]
@@ -114,6 +118,90 @@ def test_newton_pyr_matches_jax():
                                err_msg=name)
 
 
+# -- the Newton kernels' shared-memory layout and envs per block ---------------
+
+SMEM_LIMIT = 232448  # bytes one block may use on sm_90
+
+
+def _layout_words(source: str, **dims) -> int:
+  """Words of one env's working set, read from the ``Layout`` struct of a
+  Newton kernel's source: the sum of its ``o += <expr>;`` terms."""
+  src = open(os.path.join(plk.cuda_build.CSRC, source)).read()
+  body = src[src.index('struct Layout'):src.index('words = o;')]
+  nv = dims['nv']
+  env = dict(dims, nvp=(nv + 3) // 4 * 4, ldm=nv | 1, kPartWords=128)
+  if 'naxes' in dims:
+    env['NU'] = (dims['naxes'] + 1) * dims['C']
+  terms = re.findall(r'o \+= ([^;]+);', body)
+  assert len(terms) > 15
+  return sum(eval(t, {}, env) for t in terms)  # C and Python agree here
+
+
+def _largest(fits) -> int:
+  """The largest n >= 1 with fits(n), fits monotone."""
+  lo, hi = 1, 2
+  while fits(hi):
+    lo, hi = hi, 2 * hi
+  while hi - lo > 1:
+    mid = (lo + hi) // 2
+    lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+  return lo
+
+
+@pytest.mark.parametrize('E, nbytes', [(1, 18792), (2, 37448), (4, 74600),
+                                       (8, 148904)])
+def test_newton_pyr_smem_bytes(E, nbytes):
+  """K3's block of E envs at the cube-push shape (nv 20, Rs 37, C 24,
+  naxes 3): the bytes, their agreement with the Layout struct of the CUDA
+  source, the stride rule (4 mod 32 words for E > 1, so that the E envs'
+  copies of an element fall into different banks), and the largest C that
+  still fits at this E."""
+  assert plk.newton_pyr_smem_bytes(NV, RS, NSEL, NAXES, E) == nbytes
+  words = _layout_words('newton_pyr.cu', nv=NV, Rs=RS, C=NSEL, naxes=NAXES)
+  stride = (nbytes // 4 - 2 * RS) // E
+  assert stride >= words and stride - words < (4 if E == 1 else 32)
+  assert stride % 4 == 0 and (E == 1 or stride % 32 == 4)
+  fits = lambda C: plk.newton_pyr_smem_bytes(NV, RS, C, NAXES, E) <= SMEM_LIMIT
+  assert _largest(fits) == {1: 537, 2: 258, 4: 118, 8: 49}[E]
+
+
+def test_newton_pyr_size_guard():
+  """K3's guard of the CUDA route: nv <= 32 (a lane per row of H) and one
+  env within the shared memory of a block; it names the sizes.  The CPU
+  route has no such limit."""
+  plk.check_newton_pyr_fits(NV, RS, NSEL, NAXES)
+  plk.check_newton_pyr_fits(32, RS, 355, NAXES)  # the last C that fits
+  with pytest.raises(ValueError, match=r'nv=32, Rs=37, C=356'):
+    plk.check_newton_pyr_fits(32, RS, 356, NAXES)
+  with pytest.raises(ValueError, match=r'nv=33'):
+    plk.check_newton_pyr_fits(33, RS, NSEL, NAXES)
+
+
+@pytest.mark.parametrize('case, B, n_sm, expect', [
+    ('cube-push K3', 2048, 132, 8),
+    ('K3 small batch: a block for every SM comes first', 600, 132, 4),
+    ('K3 ragged batch', 2045, 132, 8),
+    ('K3 tiny batch', 8, 132, 1),
+    ('K3 wide contacts: E = 8 does not fit', 2048, 132, 4),
+    ('K3 one env only', 100000, 132, 1),
+    ('K3 nothing fits', 2048, 132, None),
+])
+def test_newton_envs_per_block(case, B, n_sm, expect):
+  """E is the largest of 8, 4, 2, 1 whose block fits 232448 bytes and
+  leaves no SM without a block; 1 when the batch is too small for that."""
+  C = {'K3 wide contacts: E = 8 does not fit': 60, 'K3 one env only': 300,
+       'K3 nothing fits': 600}.get(case, NSEL)
+  smem = lambda E: plk.newton_pyr_smem_bytes(NV, RS, C, NAXES, E)
+  if expect is None:
+    with pytest.raises(ValueError, match='shared memory'):
+      plk.newton_envs_per_block(smem, B, n_sm)
+    return
+  E = plk.newton_envs_per_block(smem, B, n_sm)
+  assert E == expect
+  assert smem(E) <= SMEM_LIMIT
+  assert E == 1 or -(-B // E) >= n_sm
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
   """The CUDA kernels against their plain versions on the card."""
@@ -140,3 +228,16 @@ def test_kernels_match_plain_on_card():
   for k, p in zip(plk._newton_lanes_core(KIND_S, 1, 5, *a),
                   plk.newton_generic_plain(KIND_S, 1, 5, *a)):
     assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+  # a ragged batch (13 envs: no multiple of any E) at nv 20 and nv 18, the
+  # two widths compiled in, and nv 7, the width-at-run-time route
+  for nv in (NV, 18, 7):
+    inp = _newton_inputs(rng, nv=nv, b=13)
+    a = [torch.from_numpy(inp[k]).to(dev) for k in names]
+    for k, p in zip(plk.newton_lanes_pyr_t(1, 6, KIND_S, *a, NAXES),
+                    plk.newton_pyr_plain(1, 6, KIND_S, *a, NAXES)):
+      assert k.shape == p.shape
+      assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+    for k, p in zip(plk._newton_lanes_core(KIND_S, 1, 5, *a[:7]),
+                    plk.newton_generic_plain(KIND_S, 1, 5, *a[:7])):
+      assert k.shape == p.shape
+      assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()

@@ -1,10 +1,14 @@
 """Run the PyTorch/H100 port on one card and check it.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --wrapper-times [DIR]]
 
 Run from the root of the repository.  ``--kernels-only`` stops after phase 2
-and prints no result line (for work on a kernel).  It imports the port
-(``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Two served paths
+and prints no result line (for work on a kernel).  ``--wrapper-times`` prints
+only the times of K1 and K2 through the public wrappers of the port found
+under DIR, a directory inside this repository that holds another commit of
+it (this tree when DIR is left out): the way to time a parent's kernels and
+this tree's within one call on one card (see wrapper_times).  It imports
+the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Two served paths
 are driven, each through ``envs.load`` → ``wrap_for_training`` → ``env.step``
 with a trained policy run deterministically: cube-push
 (``AirbotCubePushTrain``, kernels K1, K2, K3) and the Go2 joystick
@@ -23,18 +27,27 @@ non-zero before the result line is printed:
               K4 _newton_lanes_core on the Go2 rows at the Go2 schedule
               (1 x 5) and at 6 x 6, and on the cube-push model's generic
               rows (basis off, nv 20) at 6 x 6, where its objective is also
-              held beside K3's and its time is taken.  K3 and K4 also on
-              their recorded inputs cut by 3 envs (a batch that is no
-              multiple of the envs per block), same criteria.  Times of
-              the kernel, the plain version and, for K1 and K2, one PyTorch
-              library call; for the two Newton kernels also the device time
-              by kernel name from torch.profiler (CUDA events over
-              back-to-back launches include the wrapper's host time), that
-              time at each number of envs per block, and at the schedules
-              0 x 0, 1 x 0, 1 x ls, iters x ls (load and store, one Newton
-              step, one line-search step).  Both Newton kernels also at
-              widths and axes that are not compiled in (seeded systems,
-              see check_runtime_widths).
+              held beside K3's and its time is taken.  Every kernel also on
+              its recorded inputs cut by 3 envs (a batch that is no
+              multiple of the envs per block), K1 and K2 also on the first
+              5 envs and at every number of envs per block that fits (K1:
+              both of its decompositions at both widths), same criteria;
+              K1 with NaN in the triangle it must not read (see k1_row).
+              Times of the kernel, the plain version and, for K1 and K2,
+              one PyTorch library call; for every kernel also the device
+              time by kernel name from torch.profiler (CUDA events over
+              back-to-back launches include the wrapper's host time; the
+              library call's device time is the sum of its kernels) and
+              that time at each number of envs per block; for the two
+              Newton kernels at the schedules 0 x 0, 1 x 0, 1 x ls,
+              iters x ls (load and store, one Newton step, one line-search
+              step).  Widths and sizes that are not compiled in, on seeded
+              inputs: both Newton kernels (check_runtime_widths), K1 at
+              n 1, 7, 31, 32 (check_k1_widths) and, for the batch at which
+              its two decompositions cross, at n 20 and B 3072 and 16384
+              at every E; K2 at slot counts that are no multiple of 32,
+              past 512 and with every slot selected, on ties, inf, -0 and
+              NaN (check_k2_sizes).
   3. paths    for each path: 256 envs of the batch run 3 control steps on
               the card, on the CPU (plain versions) and on the CPU in
               float64; the card must be as close to float64 as the CPU's
@@ -55,6 +68,7 @@ non-zero before the result line is printed:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -151,6 +165,21 @@ def profiler_ms(torch, fn, reps: int, kernel_name: str) -> float:
   return time_ms(torch, fn, reps)
 
 
+def profiler_total_ms(torch, fn, reps: int) -> float:
+  """Mean summed device time of every kernel that fn() launches, from
+  torch.profiler: the device time of a call made of several library
+  kernels, to set beside a kernel's ``profiler_ms``."""
+  from torch.profiler import ProfilerActivity, profile
+
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+
+
 def schedule_split(torch, tag, run, iters: int, ls_iters: int,
                    kernel_name: str) -> None:
   """Device times of a Newton kernel (torch.profiler, by kernel name: at
@@ -171,24 +200,37 @@ def schedule_split(torch, tag, run, iters: int, ls_iters: int,
       f'{(ms[1, ls_iters] - ms[1, 0]) / max(ls_iters, 1):.5f}')
 
 
-def e_sweep(torch, lk, tag, fn, kernel_name: str) -> None:
-  """Device time (torch.profiler) of a Newton kernel at each E (envs per
-  block) whose working set fits, and the E the wrapper chooses; fn()
-  launches it."""
-  chooser = lk.newton_envs_per_block
-  seen, times = {}, {}
+@contextlib.contextmanager
+def force_E(lk, E, seen=None):
+  """Within the block every wrapper takes E envs per block wherever E is one
+  of its candidates and fits (else its own choice; E None: always its own
+  choice).  ``seen`` receives the last call's chosen E and the Es that fit."""
+  chooser = lk.envs_per_block
+
+  def pick(smem_bytes, B, n_sm, candidates=(8, 4, 2, 1)):
+    chosen = chooser(smem_bytes, B, n_sm, candidates)
+    fits = [c for c in candidates if smem_bytes(c) <= lk._SMEM_LIMIT]
+    if seen is not None:
+      seen.update(chosen=chosen, fits=fits)
+    return E if E in fits else chosen
+
+  lk.envs_per_block = pick
   try:
-    for E in (None, 8, 4, 2, 1):  # None: the wrapper's own choice
-      def pick(smem_bytes, B, n_sm, _E=E):
-        seen['chosen'] = chooser(smem_bytes, B, n_sm)
-        seen['fits'] = _E is None or smem_bytes(_E) <= lk._SMEM_LIMIT
-        return _E if _E and seen['fits'] else seen['chosen']
-      lk.newton_envs_per_block = pick
-      t = profiler_ms(torch, fn, 20, kernel_name)
-      if E and seen['fits']:
-        times[E] = t
+    yield
   finally:
-    lk.newton_envs_per_block = chooser
+    lk.envs_per_block = chooser
+
+
+def e_sweep(torch, lk, tag, fn, kernel_name: str) -> None:
+  """Device time (torch.profiler) of a kernel at each E (envs per block)
+  among its wrapper's candidates whose working set fits, and the E the
+  wrapper chooses; fn() launches it."""
+  seen, times = {}, {}
+  with force_E(lk, None, seen):
+    fn()
+  for E in seen['fits']:
+    with force_E(lk, E):
+      times[E] = profiler_ms(torch, fn, 10, kernel_name)
   log(f'{tag} envs per block: chosen E {seen["chosen"]}; profiler ms by E: '
       + ', '.join(f'E {E} {t:.5f}' for E, t in times.items()))
 
@@ -198,7 +240,8 @@ def e_sweep(torch, lk, tag, fn, kernel_name: str) -> None:
 
 def k1_work(At, bt):
   n, B = bt.shape
-  nbytes = 4 * (n * n * B + 2 * n * B)
+  # x depends on the triangle A[a][b >= a] alone: n(n+1)/2 entries of A
+  nbytes = 4 * (n * (n + 1) // 2 * B + 2 * n * B)
   # Cholesky n³/3 multiply-adds, two triangular solves n² each, n roots
   flops = B * (2 * n**3 / 3 + 2 * n * n + n)
   return nbytes, flops
@@ -351,41 +394,218 @@ def worst_kernel(torch, err, tol, err_plain):
   return worst(err, torch.where(err_plain > tol, 2 * err_plain, tol))
 
 
-def k1_row(torch, lk, systems):
-  """K1 on each (A, b) of ``systems``: per env max|k − p| <= 1e-5·max|p| +
-  1e-6, and the normwise backward error ‖Ax − b‖ / (‖A‖‖x‖ + ‖b‖), in
-  float64, <= 1e-6 (a Cholesky solve is backward stable: fp32 gives ~n·eps
-  whatever A's condition number).  Times on the last system."""
+def k1_ratios(torch, lk, At, bt):
+  """K1 on one (A, b), per env: max|k − p| <= 1e-5·max|p| + 1e-6, and the
+  normwise backward error ‖Ax − b‖ / (‖A‖‖x‖ + ‖b‖), in float64, <= 1e-6 (a
+  Cholesky solve is backward stable: fp32 gives ~n·eps whatever A's
+  condition number).  Returns (max |k − p|, worst error/tolerance over
+  envs: [kernel, kernel backward, plain backward, plain vs float64])."""
+  xk, xp = lk.spd_solve_lanes(At, bt), lk.spd_solve_plain(At, bt)
+  x64 = lk.spd_solve_plain(At.double(), bt.double())
+  ratios = [worst(per_env_max(xk - xp), 1e-5 * per_env_max(xp) + 1e-6)]
+  for x in (xk, xp):
+    res = torch.einsum('ijb,jb->ib', At.double(), x.double()) - bt.double()
+    eta = per_env_max(res) / (
+        At.double().abs().sum(1).amax(0) * per_env_max(x.double())
+        + per_env_max(bt.double()))
+    ratios.append(worst(eta, torch.full_like(eta, 1e-6)))
+  ratios.append(worst(per_env_max(xp.double() - x64),
+                      1e-5 * per_env_max(x64) + 1e-6))
+  if not bool(torch.isfinite(xk).all().item()):
+    ratios[0] = float('inf')
+  return (xk - xp).abs().max().item(), ratios
+
+
+def cut_batch(torch, args, envs):
+  """The recorded arguments of a wrapper with the batch (the trailing axis
+  of every tensor) cut to the slice ``envs`` and made contiguous."""
+  return tuple(a[..., envs].contiguous() if torch.is_tensor(a) else a
+               for a in args)
+
+
+def ragged(torch, args, drop: int = 3):
+  """The recorded arguments with the last ``drop`` envs cut off: a batch
+  that is no multiple of the envs per block."""
+  return cut_batch(torch, args, slice(None, -drop))
+
+
+def k1_row(torch, lk, tag, systems):
+  """K1 on each (A, b) of ``systems`` under k1_ratios' criteria; on the last
+  one also at every E that fits (both decompositions at the widths that have
+  both), on the batch cut by 3 envs and on its first 5 envs, and with the
+  triangle that the function never reads filled with NaN, where x must be,
+  bit for bit, the x of the clean matrix (the plain version cannot take that
+  input: it masks by multiplying with 0).  Times on the last system."""
   err, ratios = 0.0, []
   for At, bt in systems:
-    xk, xp = lk.spd_solve_lanes(At, bt), lk.spd_solve_plain(At, bt)
-    x64 = lk.spd_solve_plain(At.double(), bt.double())
-    err = max(err, (xk - xp).abs().max().item())
-    tol = 1e-5 * per_env_max(xp) + 1e-6
-    ratios.append(worst(per_env_max(xk - xp), tol))
-    for x in (xk, xp):
-      res = torch.einsum('ijb,jb->ib', At.double(), x.double()) - bt.double()
-      eta = per_env_max(res) / (
-          At.double().abs().sum(1).amax(0) * per_env_max(x.double())
-          + per_env_max(bt.double()))
-      ratios.append(worst(eta, torch.full_like(eta, 1e-6)))
-    ratios.append(worst(per_env_max(xp.double() - x64),
-                        1e-5 * per_env_max(x64) + 1e-6))
+    e, r = k1_ratios(torch, lk, At, bt)
+    err, ratios = max(err, e), ratios + r
   At, bt = systems[-1]
+  n, B = bt.shape
+  lo = torch.tril_indices(n, n, -1, device=At.device)
+  A_nan = At.clone()
+  A_nan[lo[0], lo[1]] = float('nan')
+  seen, parts, extra_ok = {}, [], True
+  with force_E(lk, None, seen):
+    lk.spd_solve_lanes(At, bt)
+  for E in seen['fits']:
+    with force_E(lk, E):
+      r = k1_ratios(torch, lk, At, bt)[1][0]
+      same = torch.equal(lk.spd_solve_lanes(A_nan, bt),
+                         lk.spd_solve_lanes(At, bt))
+    parts.append(f'E {E} {r:.3g}{"" if same else " NaN-triangle DIFFERS"}')
+    extra_ok = extra_ok and r <= 1.0 and same
+  for what, envs in (('ragged', slice(None, -3)), ('first 5', slice(None, 5))):
+    a, b = cut_batch(torch, (At, bt), envs)
+    r = k1_ratios(torch, lk, a, b)[1]
+    parts.append(f'{what} (B {b.shape[1]}) {max(r[:2]):.3g}')
+    extra_ok = extra_ok and max(r[:2]) <= 1.0
+  log(f'K1 {tag}: kernel error/tolerance at each E, NaN in the unread '
+      f'triangle bit-identical at each, ragged and tiny batches: '
+      + ', '.join(parts) + (' ok' if extra_ok else ' FAIL'))
+  run = lambda: lk.spd_solve_lanes(At, bt)
+  e_sweep(torch, lk, f'K1 {tag}', run, 'spd_solve_')
   A_bm = At.permute(2, 0, 1).contiguous()
   b_bm = bt.t().contiguous()[..., None]
+  library = lambda: torch.cholesky_solve(b_bm, torch.linalg.cholesky(A_bm))
   return dict(
-      max_abs_err=err, ok=max(ratios) <= 1.0,
+      max_abs_err=err, ok=max(ratios) <= 1.0 and extra_ok,
       ratios=f'kernel {max(ratios[0::4]):.3g}, kernel backward '
              f'{max(ratios[1::4]):.3g}, plain backward '
              f'{max(ratios[2::4]):.3g}, plain vs f64 {max(ratios[3::4]):.3g}',
       work=k1_work(At, bt),
-      ms=time_ms(torch, lambda: lk.spd_solve_lanes(At, bt), 50),
+      ms=time_ms(torch, run, 50),
+      profiler_ms=profiler_ms(torch, run, 50, 'spd_solve_'),
       plain_ms=time_ms(torch, lambda: lk.spd_solve_plain(At, bt), 10),
-      library_ms=time_ms(torch, lambda: torch.cholesky_solve(
-          b_bm, torch.linalg.cholesky(A_bm)), 50),
-      note=f'n {bt.shape[0]}, B {bt.shape[1]}; per env: |k-p| <= '
-           '1e-5*max|p| + 1e-6; backward error <= 1e-6',
+      library_ms=time_ms(torch, library, 50),
+      library_device_ms=profiler_total_ms(torch, library, 20),
+      note=f'n {n}, B {B}; per env: |k-p| <= 1e-5*max|p| + 1e-6; backward '
+           'error <= 1e-6',
+  )
+
+
+def spd_systems(torch, rng, n, B):
+  """Seeded SPD systems in lanes layout on the card: A (n, n, B), b (n, B)."""
+  import numpy as np
+
+  R = rng.normal(size=(B, n, n))
+  A = R @ np.swapaxes(R, 1, 2) / n + 0.05 * np.eye(n)
+  f32 = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=DEV)
+  return f32(np.transpose(A, (1, 2, 0))), f32(rng.normal(size=(n, B)))
+
+
+def check_k1_widths(torch, lk):
+  """K1 at widths that are not compiled in (the same solve in shared memory
+  with n at run time), on seeded SPD systems at a batch that is no multiple
+  of any E, under k1_ratios' criteria.  Then seeded systems of width 20 at
+  two batches on either side of the switch between its two decompositions:
+  the same criteria at the chosen E, and its time at every E."""
+  import numpy as np
+
+  rng = np.random.default_rng(SEED)
+  parts, ok = [], True
+  for n in (1, 7, 31, 32):
+    r = k1_ratios(torch, lk, *spd_systems(torch, rng, n, 301))[1]
+    parts.append(f'n {n} {max(r[:2]):.3g}')
+    ok = ok and max(r[:2]) <= 1.0
+  log('K1 at widths not compiled in, B 301: worst error/tolerance: '
+      + ', '.join(parts) + (' ok' if ok else ' FAIL'))
+  if not ok:
+    raise SystemExit('K1 disagrees at a width not compiled in')
+  # where the warp per env (E <= 8) and the thread per env (E = 32) cross
+  for B in (3072, 16384):
+    At, bt = spd_systems(torch, rng, 20, B)
+    r = k1_ratios(torch, lk, At, bt)[1]
+    log(f'K1 seeded systems, n 20, B {B}: worst error/tolerance '
+        f'{max(r[:2]):.3g}' + (' ok' if max(r[:2]) <= 1.0 else ' FAIL'))
+    if max(r[:2]) > 1.0:
+      raise SystemExit('K1 disagrees on seeded systems')
+    e_sweep(torch, lk, f'K1 seeded systems, n 20, B {B}',
+            lambda: lk.spd_solve_lanes(At, bt), 'spd_solve_')
+
+
+def check_k2_sizes(torch, lk):
+  """K2 on seeded inputs with exact ties, exact against the plain version:
+  a number of slots that is no multiple of 32, all slots selected
+  (nsel == ncon), more than 512 slots (the keys in shared memory instead of
+  registers), batches that are no multiple of any E; some dists are +inf,
+  -0 beside +0, and NaN, which the kernel counts as +inf (the plain version
+  is given them as +inf)."""
+  import numpy as np
+
+  rng = np.random.default_rng(SEED)
+  parts, ok = [], True
+  for ncon, nsel, B in ((100, 24, 301), (100, 100, 13), (33, 33, 2045),
+                        (1000, 24, 301), (513, 513, 13)):
+    d = np.round(rng.uniform(-0.01, 0.3, size=(ncon, B)) * 20) / 20
+    d[3], d[5, ::2], d[0, 1::3], d[2, 1::3] = np.inf, np.nan, -0.0, 0.0
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=DEV)
+    dist, feat = f32(d), f32(rng.normal(size=(ncon, 13, B)))
+    ptab = f32(rng.normal(size=(ncon, 33)))
+    struct = ((ncon, 1, 0),)
+    same = torch.equal(
+        lk.contact_select_lanes(struct, nsel, dist, feat, ptab),
+        lk.contact_select_plain(struct, nsel,
+                                torch.nan_to_num(dist, nan=float('inf'),
+                                                 posinf=float('inf'),
+                                                 neginf=-float('inf')),
+                                feat, ptab))
+    parts.append(f'ncon {ncon} nsel {nsel} B {B} '
+                 f'{"exact" if same else "DIFFERS"}')
+    ok = ok and same
+  log('K2 on seeded inputs with ties, inf, -0 and NaN: ' + ', '.join(parts)
+      + (' ok' if ok else ' FAIL'))
+  if not ok:
+    raise SystemExit('K2 disagrees with its plain version')
+
+
+def k2_row(torch, lk, args):
+  """K2 on the recorded selection: exact equality with the plain version on
+  the recorded dist and on dist rounded to exact ties, each also at every E
+  that fits, on the batch cut by 3 envs and on its first 5 envs.  Times on
+  the recorded inputs, and the time at each E also on the batch tiled to
+  8192 envs."""
+  pair_struct, nsel, dist_l, feat_dyn, ptab = args
+  tied = (torch.round(dist_l * 20) / 20).contiguous()
+  differs = lambda a: (lk.contact_select_lanes(*a)
+                       - lk.contact_select_plain(*a)).abs().max().item()
+  seen, err, parts = {}, 0.0, []
+  with force_E(lk, None, seen):
+    lk.contact_select_lanes(*args)
+  for d in (dist_l, tied):
+    a = (pair_struct, nsel, d, feat_dyn, ptab)
+    for E in seen['fits']:
+      with force_E(lk, E):
+        err = max(err, differs(a))
+    for envs in (slice(None, -3), slice(None, 5)):  # ptab has no batch
+      err = max(err, differs(a[:2] + cut_batch(torch, a[2:4], envs) + a[4:]))
+  ncon, Fd, B = feat_dyn.shape
+  slot_pair = lk._slot_pair(pair_struct, dist_l.device).long()
+
+  def topk_gather():
+    idx = torch.topk(dist_l, nsel, dim=0, largest=False, sorted=True).indices
+    dyn = torch.gather(feat_dyn, 0, idx[:, None, :].expand(nsel, Fd, B))
+    return dyn, ptab[slot_pair[idx]]
+
+  run = lambda: lk.contact_select_lanes(*args)
+  name = 'contact_select_kernel'
+  e_sweep(torch, lk, f'K2 cube-push, B {B}', run, name)
+  big = tuple(torch.cat([a] * (GO2_ENVS // B), dim=-1).contiguous()
+              if torch.is_tensor(a) and a is not ptab else a for a in args)
+  e_sweep(torch, lk, f'K2 cube-push inputs tiled to B {big[2].shape[-1]}',
+          lambda: lk.contact_select_lanes(*big), name)
+  n_tied = int((tied[:-1] == tied[1:]).sum().item())
+  return dict(
+      max_abs_err=err, ok=err == 0.0, ratios='exact',
+      work=k2_work(*args),
+      ms=time_ms(torch, run, 50),
+      profiler_ms=profiler_ms(torch, run, 50, name),
+      plain_ms=time_ms(torch, lambda: lk.contact_select_plain(*args), 10),
+      library_ms=time_ms(torch, topk_gather, 50),
+      library_device_ms=profiler_total_ms(torch, topk_gather, 20),
+      note=f'exact, at every E ({seen["fits"]}), on {B - 3} and 5 envs; tie '
+           f'case has {n_tied} equal neighbouring slots',
   )
 
 
@@ -572,14 +792,6 @@ def k3_ratios(torch, lk, args):
   return err, ratios
 
 
-def ragged(torch, args, drop: int = 3):
-  """The recorded arguments of a Newton wrapper with the last ``drop`` envs
-  cut off and made contiguous: a batch that is no multiple of the envs per
-  block."""
-  return tuple(a[..., :-drop].contiguous() if torch.is_tensor(a) else a
-               for a in args)
-
-
 def seeded_system(torch, rng, nv, Rs, C, naxes, B):
   """A seeded system for the Newton wrappers: SPD M, every row kind (one
   equality row, friction rows of which one is inert, limits), separated
@@ -651,36 +863,10 @@ def check_kernels(torch, lk, calls):
   the kernel's (a criterion the plain version fails would be a wrong
   criterion, not a kernel fault)."""
   rows = {}
-  f64 = lambda a: a.double() if torch.is_tensor(a) else a
-
-  rows['spd_solve_lanes'] = k1_row(torch, lk, calls['spd_solve_lanes'][-2:])
-
-  # K2: exact equality, on the recorded dist and on dist with exact ties
-  args = calls['contact_select_lanes'][-1]
-  pair_struct, nsel, dist_l, feat_dyn, ptab = args
-  tied = (torch.round(dist_l * 20) / 20).contiguous()
-  err = 0.0
-  for d in (dist_l, tied):
-    a = (pair_struct, nsel, d, feat_dyn, ptab)
-    err = max(err, (lk.contact_select_lanes(*a)
-                    - lk.contact_select_plain(*a)).abs().max().item())
-  ncon, Fd, B = feat_dyn.shape
-  slot_pair = lk._slot_pair(pair_struct, dist_l.device).long()
-
-  def topk_gather():
-    idx = torch.topk(dist_l, nsel, dim=0, largest=False, sorted=True).indices
-    dyn = torch.gather(feat_dyn, 0, idx[:, None, :].expand(nsel, Fd, B))
-    return dyn, ptab[slot_pair[idx]]
-
-  n_tied = int((tied[:-1] == tied[1:]).sum().item())
-  rows['contact_select_lanes'] = dict(
-      max_abs_err=err, ok=err == 0.0, ratios='exact',
-      work=k2_work(*args),
-      ms=time_ms(torch, lambda: lk.contact_select_lanes(*args), 50),
-      plain_ms=time_ms(torch, lambda: lk.contact_select_plain(*args), 10),
-      library_ms=time_ms(torch, topk_gather, 50),
-      note=f'exact; tie case has {n_tied} equal neighbouring slots',
-  )
+  rows['spd_solve_lanes'] = k1_row(torch, lk, 'cube-push',
+                                   calls['spd_solve_lanes'][-2:])
+  rows['contact_select_lanes'] = k2_row(torch, lk,
+                                        calls['contact_select_lanes'][-1])
 
   # K3 on the assembled system of the recorded substep, per env, after
   # 1 Newton step and after the full 6.  x is held by the objective it
@@ -739,9 +925,11 @@ def report(rows):
     log(f'{short}{name}: max |kernel - plain| {r["max_abs_err"]:.3e}; '
         f'{r["note"]}; worst error/tolerance over envs: {r["ratios"]} '
         f'{"ok" if r["ok"] else "FAIL"}; kernel_ms {r["ms"]:.5f} '
-        + (f'(profiler {r["profiler_ms"]:.5f}) ' if 'profiler_ms' in r else '')
-        + f'plain_ms {r["plain_ms"]:.5f} library_ms {r["library_ms"]} '
-        f'bound_ms {r["bound_ms"]:.5f} ({r["bound_by"]})')
+        f'(profiler {r["profiler_ms"]:.5f}) plain_ms {r["plain_ms"]:.5f} '
+        + (f'library_ms {r["library_ms"]:.5f} (profiler '
+           f'{r["library_device_ms"]:.5f}) ' if r['library_ms']
+           else 'library_ms None ')
+        + f'bound_ms {r["bound_ms"]:.5f} ({r["bound_by"]})')
     if not r['ok']:
       failed.append(name)
   if failed:
@@ -969,6 +1157,82 @@ def rollout_go2(torch, lk, env0, env, policy, state, card):
   return state, launches, wall / GO2_STEPS * 1e3
 
 
+def load_path(torch, port, name, params, n_envs, length, gen, **policy_kw):
+  """A served path as its users build it: the env, its training wrappers at
+  n_envs, the trained policy run deterministically, and the reset state."""
+  env0 = port.envs.load(name, device=DEV)
+  env = port.wrappers.wrap_for_training(env0, episode_length=length,
+                                        num_envs=n_envs)
+  normalizer, params = port.networks.load_ppo_params(params)
+  policy = port.networks.make_policy(normalizer, params['policy'], device=DEV,
+                                     **policy_kw)
+  return env0, env, policy, env.reset(gen)
+
+
+def wrapper_times(torch, port, card) -> None:
+  """The mode ``--wrapper-times [DIR]``: K1 at both paths' shapes and K2,
+  through ``spd_solve_lanes`` and ``contact_select_lanes`` of the port
+  found under DIR, on the inputs of one control step of each path: CUDA-event
+  time, device time by kernel name, bound.  It uses only what every version
+  of the port has (the entry points and the two public wrappers), so that
+  the parent commit's kernels and this tree's can be timed in one call on
+  one card:
+
+      mkdir -p parent_tree && git archive HEAD | tar -x -C parent_tree
+      python3 chip_smoke.py --wrapper-times parent_tree   # parent
+      python3 chip_smoke.py --wrapper-times               # change
+      python3 chip_smoke.py --wrapper-times               # change
+      python3 chip_smoke.py --wrapper-times parent_tree   # parent
+  """
+  lk = port.lk
+  where = os.path.dirname(os.path.dirname(os.path.dirname(
+      os.path.abspath(lk.__file__))))
+  log(f'wrapper times of the port under {where}; card {card}')
+  port.cuda_build.build_all()
+  gen = torch.Generator(device=DEV).manual_seed(SEED)
+
+  def line(tag, fn, kernel_name, work):
+    bound = bound_ms(*work)[0]
+    events = time_ms(torch, fn, 50)
+    device = profiler_ms(torch, fn, 50, kernel_name)
+    log(f'{tag}: kernel_ms {events:.5f} (profiler {device:.5f}) bound_ms '
+        f'{bound:.5f}, {device / bound:.1f} x bound')
+
+  for tag, path in (
+      ('cube-push', (ENV, PARAMS, ENVS, 1200)),
+      ('Go2', (GO2_ENV, GO2_PARAMS, GO2_ENVS, 1000))):
+    kw = {'obs_key': 'state'} if tag == 'Go2' else {}
+    _, env, policy, state = load_path(torch, port, *path, gen, **kw)
+    calls = record_calls(lk, lambda: env.step(state, policy(state.obs)))
+    At, bt = calls['spd_solve_lanes'][-1][:2]
+    line(f'K1 {tag}, n {bt.shape[0]}, B {bt.shape[1]}',
+         lambda: lk.spd_solve_lanes(At, bt), 'spd_solve_', k1_work(At, bt))
+    for a in calls['contact_select_lanes'][-1:]:
+      line(f'K2 {tag}, {a[2].shape[0]} -> {a[1]} slots, B {a[2].shape[1]}',
+           lambda: lk.contact_select_lanes(*a), 'contact_select_kernel',
+           k2_work(*a))
+    del calls, env, policy, state
+
+
+def import_port(root=None):
+  """The port's modules that this script drives, from the checkout at
+  ``root``: this file's own directory (the default) or a directory below
+  it."""
+  import importlib
+  import types
+
+  if root is not None:
+    root, here = os.path.realpath(root), os.path.realpath(ROOT)
+    if os.path.commonpath([root, here]) != here:
+      raise SystemExit(f'chip_smoke: {root} lies outside {here}')
+    sys.path.insert(0, root)
+  mod = lambda name: importlib.import_module('rsr_mjx_tpu_torch.' + name)
+  return types.SimpleNamespace(
+      envs=mod('envs'), wrappers=mod('envs.wrappers'),
+      cuda_build=mod('physics.cuda_build'), fwd_fused=mod('physics.fwd_fused'),
+      lk=mod('physics.linalg_kernels'), networks=mod('train.networks'))
+
+
 def main() -> int:
 
   import torch
@@ -977,16 +1241,24 @@ def main() -> int:
     print('chip_smoke: no CUDA device; the port has no CPU path here',
           file=sys.stderr)
     return 1
+  argv = sys.argv[1:]
+  other = None  # --wrapper-times DIR: the port of another checkout
+  if '--wrapper-times' in argv:
+    rest = argv[argv.index('--wrapper-times') + 1:]
+    other = rest[0] if rest and not rest[0].startswith('--') else None
   try:
-    from rsr_mjx_tpu_torch import envs
-    from rsr_mjx_tpu_torch.envs import wrappers
-    from rsr_mjx_tpu_torch.physics import cuda_build
-    from rsr_mjx_tpu_torch.physics import fwd_fused
-    from rsr_mjx_tpu_torch.physics import linalg_kernels as lk
-    from rsr_mjx_tpu_torch.train import networks
+    port = import_port(other)
   except ImportError as e:
     print(f'chip_smoke: run from the repository root ({e})', file=sys.stderr)
     return 1
+  envs, cuda_build, fwd_fused, lk = (port.envs, port.cuda_build,
+                                     port.fwd_fused, port.lk)
+  if '--wrapper-times' in argv:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    wrapper_times(torch, port, card_line())
+    return 0
 
   # -- 1. device
   card = card_line()
@@ -1003,15 +1275,14 @@ def main() -> int:
   torch.set_grad_enabled(False)
 
   # -- 2. kernels, on the inputs of one control step of each path
-  env0 = envs.load(ENV, device=DEV)
-  env = wrappers.wrap_for_training(env0, episode_length=1200, num_envs=ENVS)
-  normalizer, params = networks.load_ppo_params(PARAMS)
-  policy = networks.make_policy(normalizer, params['policy'], device=DEV)
   gen = torch.Generator(device=DEV).manual_seed(SEED)
-  state = env.reset(gen)
+  env0, env, policy, state = load_path(torch, port, ENV, PARAMS, ENVS, 1200,
+                                       gen)
   calls = record_calls(lk, lambda: env.step(state, policy(state.obs)))
   rows = check_kernels(torch, lk, calls)
   check_runtime_widths(torch, lk)
+  check_k1_widths(torch, lk)
+  check_k2_sizes(torch, lk)
   # one cube-push state through both assemblies: the basis (K3) and the
   # same selected contacts as generic rows (K4)
   m, d0 = env0.model, state.data
@@ -1027,13 +1298,8 @@ def main() -> int:
   cube_k3 = tuple(cube_k3[:5]) + (cold,) + tuple(cube_k3[6:])
   del calls
 
-  g_env0 = envs.load(GO2_ENV, device=DEV)
-  g_env = wrappers.wrap_for_training(g_env0, episode_length=1000,
-                                     num_envs=GO2_ENVS)
-  g_norm, g_params = networks.load_ppo_params(GO2_PARAMS)
-  g_policy = networks.make_policy(g_norm, g_params['policy'], device=DEV,
-                                  obs_key='state')
-  g_state = g_env.reset(gen)
+  g_env0, g_env, g_policy, g_state = load_path(
+      torch, port, GO2_ENV, GO2_PARAMS, GO2_ENVS, 1000, gen, obs_key='state')
   calls = record_calls(lk, lambda: g_env.step(g_state, g_policy(g_state.obs)))
   n_sub = g_env0.n_substeps
   if (len(calls['_newton_lanes_core']), len(calls['spd_solve_lanes'])) != (
@@ -1041,10 +1307,11 @@ def main() -> int:
     raise SystemExit('a Go2 control step must call K4 and K1 once a substep')
   rows['_newton_lanes_core'] = check_k4(
       torch, lk, calls['_newton_lanes_core'][-1], cube_k4, cube_k3)
-  rows['K1 at nv 18 (Go2)'] = k1_row(torch, lk, calls['spd_solve_lanes'][-2:])
+  rows['K1 at nv 18 (Go2)'] = k1_row(torch, lk, 'Go2',
+                                     calls['spd_solve_lanes'][-2:])
   del calls, cube_k3, cube_k4
   report(rows)
-  if '--kernels-only' in sys.argv[1:]:
+  if '--kernels-only' in argv:
     log('kernels-only: stopped after phase 2 (no result line)')
     return 0
 
@@ -1084,11 +1351,16 @@ def main() -> int:
     count = launches[name] + g_launches[name]
     if count <= 0:
       raise SystemExit(f'{name} was launched by neither path')
+    # ms and library_ms are device times from torch.profiler (the kernel by
+    # name; the library call as the sum of its kernels): CUDA events over
+    # back-to-back launches, printed beside them above, time the Python
+    # wrapper's enqueue rate once a kernel takes under ~30 µs
     out.append({
         'name': name, 'route': 'cuda', 'source': src, 'replaces': tpu,
         'launches': count, 'max_abs_err': r['max_abs_err'],
-        'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
-        'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
+        'ms': r['profiler_ms'], 'plain_ms': r['plain_ms'],
+        'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
+        'library_ms': r.get('library_device_ms'),
     })
   log(json.dumps({'kernels': out}))
   log(card)

@@ -271,8 +271,8 @@ extern "C" int newton_generic_launch(
     int R, int iters, int ls_iters, int B, int E, cudaStream_t stream) {
   if (nv < 1 || nv > 64 || R < 1 || B < 1 || iters < 0 || ls_iters < 0)
     return (int)cudaErrorInvalidValue;
-  if (E != 1 && E != 2 && E != 4 && E != 8) return (int)cudaErrorInvalidValue;
-  const int logE = E == 1 ? 0 : (E == 2 ? 1 : (E == 4 ? 2 : 3));
+  const int logE = log2_envs(E);
+  if (logE < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = Layout(nv, R).bytes(E, R);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
   // the widths of the served paths at compile time, any other at run time

@@ -39,8 +39,8 @@ _FRICTION = 1
 _LIMIT = 2
 _CONTACT = 3
 
-# shared memory one block may use on sm_90 (227 KB), the limit of the two
-# Newton kernels, which keep the whole systems of a block's envs in it
+# shared memory one block may use on sm_90 (227 KB): every kernel keeps the
+# working sets of a block's envs in it
 _SMEM_LIMIT = 232448
 # streaming multiprocessors of an H100 SXM: the default of the E chooser
 # (the wrappers pass the card's own count)
@@ -101,11 +101,11 @@ def _sm_count(device: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Shared-memory layout of the two Newton kernels (``csrc/newton_common.cuh``):
-# a warp per env, E consecutive envs per block, each env's working set at a
-# stride that is 4 mod 32 words, the two row masks once per block.  These
-# functions repeat the ``Layout`` structs of the sources word for word, so
-# that the size guards and the choice of E are reached by the CPU tests.
+# Shared-memory layout of the kernels (``csrc/lanes_common.cuh``): a warp per
+# env, E consecutive envs per block, each env's working set at a stride that
+# is 4 mod 32 words.  The ``*_smem_bytes`` functions below repeat the
+# ``Layout`` structs of the sources word for word, so that the size guards
+# and the choice of E are reached by the CPU tests.
 # ---------------------------------------------------------------------------
 
 
@@ -115,12 +115,14 @@ def _env_stride(words: int, E: int) -> int:
   return (words + 3) // 4 * 4 if E == 1 else (words + 27) // 32 * 32 + 4
 
 
-def newton_envs_per_block(smem_bytes, B: int, n_sm: int = _H100_SMS) -> int:
-  """E, the envs one block of a Newton kernel takes: the largest of 8, 4, 2,
-  1 whose working set ``smem_bytes(E)`` fits the 232448 bytes of a block and
-  which still gives every SM a block (ceil(B / E) >= n_sm); E = 1 whenever
-  the batch is too small for that.  Raises if a single env does not fit."""
-  fits = [E for E in (8, 4, 2, 1) if smem_bytes(E) <= _SMEM_LIMIT]
+def envs_per_block(smem_bytes, B: int, n_sm: int = _H100_SMS,
+                   candidates=(8, 4, 2, 1)) -> int:
+  """E, the envs one block of a kernel takes: the largest of ``candidates``
+  (descending, ending in 1) whose working set ``smem_bytes(E)`` fits the
+  232448 bytes of a block and which still gives every SM a block
+  (ceil(B / E) >= n_sm); E = 1 whenever the batch is too small for that.
+  Raises if a single env does not fit."""
+  fits = [E for E in candidates if smem_bytes(E) <= _SMEM_LIMIT]
   if not fits:
     raise ValueError(
         f'one env needs {smem_bytes(1)} bytes of shared memory '
@@ -181,10 +183,17 @@ def _cho_solve_cols(cols, djs, b: torch.Tensor) -> torch.Tensor:
 # Replaces _spd_kernel / spd_solve_lanes (rsr_mjx_tpu linalg_kernels.py:103).
 # Bound on the H100: bytes.  At n = 20, B = 2048 it reads 3.4 MB and writes
 # 0.16 MB (≈ 1.1 µs at 3.35 TB/s) against ≈ 2n³/3 + 2n² ≈ 6.1 kFLOP per
-# env (12.5 MFLOP in all, 0.2 µs at 67 TFLOP/s fp32).  Design: one warp
-# per env, its matrix in shared memory, lanes over rows for each column
-# update and the triangular solves; no padding (the TPU's 128-lane blocks
-# padded with identity systems have no counterpart).
+# env (12.5 MFLOP in all, 0.2 µs at 67 TFLOP/s fp32).  Column j of the
+# factorisation reads row j's entries i >= j only, so x depends on the
+# triangle A[a][b >= a] alone: the kernel loads those n(n+1)/2 entries and
+# no other.  Design: a warp per env, E <= 8 envs per block, the triangle and
+# b loaded with the env index fastest across threads; at n 18 and 20 lane i
+# keeps row i in registers and the column travels by shuffles, any other
+# n <= 32 is factored in shared memory.  Once the batch gives every SM a
+# warp of 32 envs, n 18 and 20 take a thread per env instead (E = 32: the
+# lanes layout is coalesced as it stands, the triangle in registers).
+# ``envs_per_block`` chooses among both.  No padding (the TPU's 128-lane
+# blocks padded with identity systems have no counterpart).
 # ---------------------------------------------------------------------------
 
 
@@ -195,20 +204,52 @@ def spd_solve_plain(At: torch.Tensor, bt: torch.Tensor,
   return _cho_solve_cols(cols, djs, bt)
 
 
+# widths at which K1 has its thread-per-env route compiled in (E = 32)
+_SPD_THREAD_WIDTHS = (18, 20)
+
+
+def spd_solve_smem_bytes(n: int, E: int = 1) -> int:
+  """Shared memory a block of K1 with E envs needs (the layout of
+  ``csrc/spd_solve.cu``).  Per env, in float32 words: the matrix at the row
+  stride ld = n | 1, b, and two scratch vectors of n, at a stride that is
+  4 mod 32.  E = 32 is the thread-per-env route, which uses none."""
+  if E == 32:
+    return 0
+  words = n * (n | 1) + 3 * n
+  return 4 * E * _env_stride(words, E)
+
+
+def check_spd_solve_fits(n: int) -> None:
+  """Raise unless K1 takes the width: n <= 32 (a lane per row)."""
+  if n > 32:
+    raise ValueError(f'spd_solve_lanes kernel takes n <= 32, got {n}')
+
+
+def spd_solve_envs_per_block(n: int, B: int, n_sm: int = _H100_SMS) -> int:
+  """K1's E: 8, 4, 2 or 1 envs per block with a warp per env or, at the
+  widths that have it and once ceil(B / 32) >= n_sm, 32 with a thread per
+  env."""
+  cands = (32, 8, 4, 2, 1) if n in _SPD_THREAD_WIDTHS else (8, 4, 2, 1)
+  return envs_per_block(lambda E: spd_solve_smem_bytes(n, E), B, n_sm, cands)
+
+
 def spd_solve_lanes(At: torch.Tensor, bt: torch.Tensor,
                     eps: float = 1e-12) -> torch.Tensor:
-  """Lanes-layout batched SPD solve; A (n, n, B), b (n, B) → x (n, B)."""
+  """Lanes-layout batched SPD solve; A (n, n, B), b (n, B) → x (n, B).
+
+  Only the triangle A[a][b >= a] reaches x.  The CUDA route takes n <= 32
+  (a lane per row)."""
   n, B = bt.shape
   _check('b', bt, (n, B), bt)
   _check('A', At, (n, n, B), bt)
   if _route(bt) == 'plain':
     return spd_solve_plain(At, bt, eps)
-  if n > 32:
-    raise ValueError(f'spd_solve_lanes kernel takes n <= 32, got {n}')
+  check_spd_solve_fits(n)
+  E = spd_solve_envs_per_block(n, B, _sm_count(bt.device))
   x = torch.empty_like(bt)
   LAUNCHES['spd_solve_lanes'] += 1
   _launch('spd_solve', At.data_ptr(), bt.data_ptr(), x.data_ptr(), n, B,
-          float(eps), _stream())
+          float(eps), E, _stream())
   return x
 
 
@@ -222,9 +263,12 @@ def spd_solve_lanes(At: torch.Tensor, bt: torch.Tensor,
 # near-tie far from contact).  Each pick gathers the slot's dynamic
 # features and its pair's static row (pair = slot // slots_per_pair within
 # its group, where the TPU kernel reduced a one-hot at pair level).
-# Bound on the H100: bytes.  Design: one block per env; dist in shared
-# memory, nsel block-wide (min dist, min index) reductions, each pick
-# gathered as it is made.
+# Bound on the H100: bytes.  Design: E envs per block (``envs_per_block``);
+# the dist tile loaded with the env index fastest across threads; a warp per
+# env makes the nsel picks (lane l owns slots l, l + 32, … as ordered keys,
+# in registers up to 512 slots; a pick is two warp-wide minima, no block
+# barrier); then the whole block gathers and stores with the env fastest,
+# the static rows from a copy of the pair table in shared memory.
 # ---------------------------------------------------------------------------
 
 
@@ -237,6 +281,27 @@ def _slot_pair(pair_struct: tuple, device: torch.device) -> torch.Tensor:
     out.append(base + np.arange(P * k) // k)
     base += P
   return torch.tensor(np.concatenate(out), dtype=torch.int32, device=device)
+
+
+def contact_select_smem_bytes(ncon: int, nsel: int, Ptot: int, nst: int,
+                              E: int = 1) -> int:
+  """Shared memory a block of K2 with E envs needs (the layout of
+  ``csrc/contact_select.cu``), in float32 words: per env the ncon dists at a
+  stride that is 4 mod 32; per block the slot and the pair of every pick
+  (2·nsel·E) and the pair table (Ptot·nst)."""
+  return 4 * (E * _env_stride(ncon, E) + 2 * nsel * E + Ptot * nst)
+
+
+def check_contact_select_fits(ncon: int, nsel: int, Ptot: int,
+                              nst: int) -> None:
+  """Raise unless K2 takes the selection: one env's block within the 232448
+  bytes of shared memory."""
+  smem = contact_select_smem_bytes(ncon, nsel, Ptot, nst)
+  if smem > _SMEM_LIMIT:
+    raise ValueError(
+        f'contact_select_lanes kernel: ncon={ncon}, nsel={nsel} with a pair '
+        f'table of {Ptot} x {nst} needs {smem} bytes of shared memory at '
+        f'E=1 (limit {_SMEM_LIMIT})')
 
 
 def contact_select_plain(pair_struct: tuple, nsel: int, dist_l, feat_dyn,
@@ -276,12 +341,16 @@ def contact_select_lanes(pair_struct: tuple, nsel: int, dist_l: torch.Tensor,
   if _route(dist_l) == 'plain':
     return contact_select_plain(pair_struct, nsel, dist_l, feat_dyn,
                                 pair_table)
+  check_contact_select_fits(ncon, nsel, Ptot, nst)
+  E = envs_per_block(
+      lambda E: contact_select_smem_bytes(ncon, nsel, Ptot, nst, E), B,
+      _sm_count(dev))
   slot_pair = _slot_pair(pair_struct, dev)
   out = torch.empty((nsel, Fd + nst, B), dtype=torch.float32, device=dev)
   LAUNCHES['contact_select_lanes'] += 1
   _launch('contact_select', dist_l.data_ptr(), feat_dyn.data_ptr(),
           pair_table.data_ptr(), slot_pair.data_ptr(), out.data_ptr(),
-          ncon, Fd, nsel, nst, B, _stream())
+          ncon, Fd, nsel, nst, Ptot, B, E, _stream())
   return out
 
 
@@ -299,7 +368,7 @@ def contact_select_lanes(pair_struct: tuple, nsel: int, dist_l: torch.Tensor,
 # Bound on the H100: fp32 operations outside the tensor cores.  Per env
 # and iteration the Hessian alone is nv(nv+1)/2 · (Rs + (naxes+1)·C) MACs
 # (210 · 133 on cube-push); the inputs are ≈ 12 KB per env.  Design: a warp
-# per env, E envs per block (``newton_envs_per_block``), loaded with the env
+# per env, E envs per block (``envs_per_block``), loaded with the env
 # index fastest across threads; Jᵀ, Uᵀ, M and H in shared memory (W = U·S is
 # formed in registers); the Hessian from 4 × 4 register tiles of its lower
 # triangle; the Cholesky with a lane per row and column-oriented triangular
@@ -534,7 +603,7 @@ def newton_lanes_pyr_t(iterations: int, ls_iterations: int,
     return newton_pyr_plain(iterations, ls_iterations, kind_s, Mt, a0t, x0t,
                             Js, arefs, Ds, fls, U, arefU, Dc, naxes)
   check_newton_pyr_fits(nv, Rs, C, naxes)
-  E = newton_envs_per_block(
+  E = envs_per_block(
       lambda E: newton_pyr_smem_bytes(nv, Rs, C, naxes, E), B, _sm_count(dev))
   ones_m, fric_m = _row_masks(tuple(np.asarray(kind_s).tolist()), dev,
                               torch.float32)
@@ -656,7 +725,7 @@ def _newton_lanes_core(kind: np.ndarray, iterations: int, ls_iterations: int,
   qfrc (nv, B)).
 
   The kernel keeps the systems of a block's E envs in shared memory
-  (``newton_envs_per_block``): one env's ``newton_generic_smem_bytes(nv, R)``
+  (``envs_per_block``): one env's ``newton_generic_smem_bytes(nv, R)``
   must not exceed 232448 bytes (227 KB), and nv must not exceed 64; past
   either the CUDA route raises (``check_newton_generic_fits``).  nv 18 with
   R 58 takes 10624 bytes alone and 82512 at E = 8, nv 20 with R 181 takes
@@ -675,7 +744,7 @@ def _newton_lanes_core(kind: np.ndarray, iterations: int, ls_iterations: int,
     return newton_generic_plain(kind, iterations, ls_iterations, Mt, a0t, x0t,
                                 Jt, areft, Dt, flt)
   check_newton_generic_fits(nv, R)
-  E = newton_envs_per_block(
+  E = envs_per_block(
       lambda E: newton_generic_smem_bytes(nv, R, E), B, _sm_count(dev))
   ones_m, fric_m = _row_masks(tuple(np.asarray(kind).tolist()), dev,
                               torch.float32)

@@ -462,12 +462,12 @@ def test_newton_generic_smem_bytes(E, go2_bytes, cube_bytes, max_r):
   assert fits(max_r) and not fits(max_r + 1)
   go2 = lambda e: plk.newton_generic_smem_bytes(18, 58, e)
   cube = lambda e: plk.newton_generic_smem_bytes(20, 181, e)
-  assert plk.newton_envs_per_block(go2, 8192) == 8
-  assert plk.newton_envs_per_block(cube, 2048) == 8
-  assert plk.newton_envs_per_block(go2, 132 * E) == E
+  assert plk.envs_per_block(go2, 8192) == 8
+  assert plk.envs_per_block(cube, 2048) == 8
+  assert plk.envs_per_block(go2, 132 * E) == E
   wide = lambda e: plk.newton_generic_smem_bytes(20, max_r + 1, e)
   if E > 1:  # one row too many for this E: the chooser falls to E / 2
-    assert plk.newton_envs_per_block(wide, 8192) == E // 2
+    assert plk.envs_per_block(wide, 8192) == E // 2
   else:
     with pytest.raises(ValueError, match='shared memory'):
-      plk.newton_envs_per_block(wide, 8192)
+      plk.envs_per_block(wide, 8192)

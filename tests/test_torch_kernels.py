@@ -118,23 +118,57 @@ def test_newton_pyr_matches_jax():
                                err_msg=name)
 
 
-# -- the Newton kernels' shared-memory layout and envs per block ---------------
+def test_spd_solve_reads_one_triangle():
+  """K1's contract in both packages: x depends on the triangle A[a][b >= a]
+  alone.  Other finite values in the strict other triangle (finite: both
+  plain forms mask with ``* 0``, so a NaN there would spread) leave x bit
+  for bit the same, in the JAX kernel (interpret mode) and in the port's
+  plain version.  The CUDA kernel loads that triangle only."""
+  rng = np.random.default_rng(5)
+  A = _spd(rng, NV, B)
+  b = rng.normal(size=(NV, B)).astype(np.float32)
+  A2 = A.copy()
+  lo = np.tril_indices(NV, -1)  # (a, b) with a > b: never read
+  A2[lo] = rng.normal(size=(len(lo[0]), B)).astype(np.float32) * 7.0
+  assert not np.array_equal(A, A2)
+  xj, xj2 = (np.asarray(jlk.spd_solve_lanes(jnp.asarray(a), jnp.asarray(b)))
+             for a in (A, A2))
+  np.testing.assert_array_equal(xj2, xj)
+  xp, xp2 = (plk.spd_solve_plain(torch.from_numpy(a),
+                                 torch.from_numpy(b)).numpy()
+             for a in (A, A2))
+  np.testing.assert_array_equal(xp2, xp)
+  # and the triangle that is read does reach x
+  A3 = A.copy()
+  A3[0, 1] *= 1.5
+  assert not np.array_equal(plk.spd_solve_plain(
+      torch.from_numpy(A3), torch.from_numpy(b)).numpy(), xp)
+
+
+# -- the kernels' shared-memory layout and envs per block ----------------------
 
 SMEM_LIMIT = 232448  # bytes one block may use on sm_90
 
 
-def _layout_words(source: str, **dims) -> int:
-  """Words of one env's working set, read from the ``Layout`` struct of a
-  Newton kernel's source: the sum of its ``o += <expr>;`` terms."""
+def _layout_terms(source: str, **env) -> list:
+  """The ``o += <expr>;`` terms of the ``Layout`` struct of a kernel's
+  source, evaluated with the sizes in ``env``."""
   src = open(os.path.join(plk.cuda_build.CSRC, source)).read()
   body = src[src.index('struct Layout'):src.index('words = o;')]
+  terms = re.findall(r'o \+= ([^;]+);', body)
+  return [eval(t, {}, env) for t in terms]  # C and Python agree here
+
+
+def _layout_words(source: str, **dims) -> int:
+  """Words of one env's working set, read from the ``Layout`` struct of a
+  Newton kernel's source."""
   nv = dims['nv']
   env = dict(dims, nvp=(nv + 3) // 4 * 4, ldm=nv | 1, kPartWords=128)
   if 'naxes' in dims:
     env['NU'] = (dims['naxes'] + 1) * dims['C']
-  terms = re.findall(r'o \+= ([^;]+);', body)
+  terms = _layout_terms(source, **env)
   assert len(terms) > 15
-  return sum(eval(t, {}, env) for t in terms)  # C and Python agree here
+  return sum(terms)
 
 
 def _largest(fits) -> int:
@@ -194,12 +228,127 @@ def test_newton_envs_per_block(case, B, n_sm, expect):
   smem = lambda E: plk.newton_pyr_smem_bytes(NV, RS, C, NAXES, E)
   if expect is None:
     with pytest.raises(ValueError, match='shared memory'):
-      plk.newton_envs_per_block(smem, B, n_sm)
+      plk.envs_per_block(smem, B, n_sm)
     return
-  E = plk.newton_envs_per_block(smem, B, n_sm)
+  E = plk.envs_per_block(smem, B, n_sm)
   assert E == expect
   assert smem(E) <= SMEM_LIMIT
   assert E == 1 or -(-B // E) >= n_sm
+
+
+def _stride(words: int, E: int) -> int:
+  """The stride rule of csrc/lanes_common.cuh, written out again."""
+  return -(-words // 4) * 4 if E == 1 else (words + 27) // 32 * 32 + 4
+
+
+@pytest.mark.parametrize('n, E, nbytes', [
+    (20, 1, 1920), (20, 8, 15488), (18, 1, 1584), (18, 8, 13440),
+    (32, 8, 36992), (7, 4, 1600), (20, 32, 0)])
+def test_spd_solve_smem_bytes(n, E, nbytes):
+  """K1's block of E envs: the bytes and their agreement with the Layout
+  struct of the CUDA source; E = 32 is the thread-per-env route, which uses
+  no shared memory.  The widest system at E = 8 stays under the 48 KB a
+  kernel may use without asking."""
+  assert plk.spd_solve_smem_bytes(n, E) == nbytes
+  if E == 32:
+    return
+  terms = _layout_terms('spd_solve.cu', n=n, ld=n | 1)
+  assert len(terms) == 4
+  assert nbytes == 4 * E * _stride(sum(terms), E)
+  assert plk.spd_solve_smem_bytes(32, 8) <= 48 * 1024
+
+
+@pytest.mark.parametrize('E, nbytes', [(1, 6072), (2, 8216), (4, 12472),
+                                       (8, 20984)])
+def test_contact_select_smem_bytes(E, nbytes):
+  """K2's block of E envs at the cube-push shape (480 slots, 24 picks, a
+  pair table of 30 x 33): the bytes and their agreement with the Layout
+  struct of the CUDA source (the dist tile E * S, then the terms)."""
+  ptot, nst = PAIRS, 13 + NV
+  assert plk.contact_select_smem_bytes(NCON, NSEL, ptot, nst, E) == nbytes
+  terms = _layout_terms('contact_select.cu', nsel=NSEL, E=E, Ptot=ptot,
+                        nst=nst)
+  assert len(terms) == 3
+  assert nbytes == 4 * (E * _stride(NCON, E) + sum(terms))
+
+
+@pytest.mark.parametrize('case, size, B, expect', [
+    ('K1 cube-push', 20, 2048, 8),
+    ('K1 Go2: a warp of 32 envs for every SM', 18, 8192, 32),
+    ('K1 132 warps of 32', 20, 4193, 32),
+    ('K1 131 warps of 32', 20, 4192, 8),
+    ('K1 no thread-per-env route at this width', 7, 8192, 8),
+    ('K1 ragged', 20, 2045, 8),
+    ('K1 small batch', 20, 600, 4),
+    ('K1 tiny', 20, 5, 1),
+    ('K2 cube-push', NCON, 2048, 8),
+    ('K2 ragged', NCON, 2045, 8),
+    ('K2 small batch', NCON, 300, 2),
+    ('K2 tiny', NCON, 5, 1),
+    ('K2 wide: E = 8 does not fit', 10000, 2048, 4),
+])
+def test_envs_per_block_k1_k2(case, size, B, expect):
+  """The same chooser for K1 (size: n) and K2 (size: ncon) on the 132 SMs
+  of an H100: the largest E whose block fits and leaves no SM without a
+  block.  K1 adds E = 32, its thread-per-env route, at the widths compiled
+  in."""
+  n_sm = 132
+  if case.startswith('K1'):
+    assert plk.spd_solve_envs_per_block(size, B, n_sm) == expect
+    return
+  smem = lambda E: plk.contact_select_smem_bytes(size, NSEL, PAIRS, 33, E)
+  E = plk.envs_per_block(smem, B, n_sm)
+  assert E == expect
+  assert smem(E) <= SMEM_LIMIT and (E == 8 or smem(2 * E) > SMEM_LIMIT
+                                    or -(-B // (2 * E)) < n_sm)
+
+
+def test_spd_solve_thread_widths_match_source():
+  """The widths at which the chooser may return E = 32 are those for which
+  the launcher of csrc/spd_solve.cu instantiates the thread-per-env kernel,
+  and the warp-per-env kernel has the same widths in registers."""
+  src = open(os.path.join(plk.cuda_build.CSRC, 'spd_solve.cu')).read()
+  thread = sorted(int(n) for n in re.findall(
+      r'spd_solve_thread_kernel<(\d+)><<<', src))
+  warp = sorted(int(n) for n in re.findall(
+      r'n == \d+ \? spd_solve_kernel<(\d+)>', src))
+  assert thread == sorted(plk._SPD_THREAD_WIDTHS) == warp
+  for n in thread:
+    assert re.search(rf'n == {n}\)\s+spd_solve_thread_kernel<{n}>', src)
+
+
+def test_spd_solve_size_guard():
+  """K1's guard of the CUDA route: n <= 32 (a lane per row); the CPU route
+  has no such limit."""
+  plk.check_spd_solve_fits(32)
+  with pytest.raises(ValueError, match=r'n <= 32, got 33'):
+    plk.check_spd_solve_fits(33)
+  rng = np.random.default_rng(6)
+  A, b = _spd(rng, 33, 2), rng.normal(size=(33, 2)).astype(np.float32)
+  x = plk.spd_solve_lanes(torch.from_numpy(A), torch.from_numpy(b))
+  assert x.shape == (33, 2) and bool(torch.isfinite(x).all())
+
+
+def test_contact_select_size_guard():
+  """K2's guard of the CUDA route names the sizes: one env's dist tile, the
+  picks and the pair table must fit the shared memory of a block."""
+  fits = lambda ncon: plk.contact_select_smem_bytes(
+      ncon, NSEL, PAIRS, 33) <= SMEM_LIMIT
+  last = _largest(fits)
+  assert last == 57072
+  plk.check_contact_select_fits(NCON, NSEL, PAIRS, 33)
+  plk.check_contact_select_fits(last, NSEL, PAIRS, 33)
+  with pytest.raises(
+      ValueError, match=r'ncon=57073, nsel=24 .* 30 x 33 needs 232456 bytes'):
+    plk.check_contact_select_fits(last + 1, NSEL, PAIRS, 33)
+
+
+def _assert_k1_close(xk, xp):
+  """K1 against its plain version, env by env:
+  max|k - p| <= 1e-5 * max|p| + 1e-6 (the criterion of chip_smoke.py)."""
+  assert xk.shape == xp.shape and bool(torch.isfinite(xk).all())
+  err, ref = (xk - xp).abs().amax(0), xp.abs().amax(0)
+  assert bool((err <= 1e-5 * ref + 1e-6).all())
 
 
 @pytest.mark.cuda
@@ -212,7 +361,7 @@ def test_kernels_match_plain_on_card():
   A = torch.from_numpy(_spd(rng, NV, 256)).to(dev)
   b = torch.from_numpy(rng.normal(size=(NV, 256)).astype(np.float32)).to(dev)
   xk, xp = plk.spd_solve_lanes(A, b), plk.spd_solve_plain(A, b)
-  assert (xk - xp).abs().max().item() <= 1e-4 * xp.abs().max().item()
+  _assert_k1_close(xk, xp)
   dist, feat, table = _selection_inputs(rng, True)
   args = (((PAIRS, K, 0),), NSEL, torch.from_numpy(dist).to(dev),
           torch.from_numpy(feat).to(dev), torch.from_numpy(table).to(dev))
@@ -231,6 +380,11 @@ def test_kernels_match_plain_on_card():
   # a ragged batch (13 envs: no multiple of any E) at nv 20 and nv 18, the
   # two widths compiled in, and nv 7, the width-at-run-time route
   for nv in (NV, 18, 7):
+    A = torch.from_numpy(_spd(rng, nv, 13)).to(dev)
+    b = torch.from_numpy(rng.normal(size=(nv, 13)).astype(np.float32)).to(dev)
+    xk, xp = plk.spd_solve_lanes(A, b), plk.spd_solve_plain(A, b)
+    assert xk.shape == xp.shape
+    _assert_k1_close(xk, xp)
     inp = _newton_inputs(rng, nv=nv, b=13)
     a = [torch.from_numpy(inp[k]).to(dev) for k in names]
     for k, p in zip(plk.newton_lanes_pyr_t(1, 6, KIND_S, *a, NAXES),
@@ -241,3 +395,19 @@ def test_kernels_match_plain_on_card():
                     plk.newton_generic_plain(KIND_S, 1, 5, *a[:7])):
       assert k.shape == p.shape
       assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+  # K1's thread-per-env route (a batch that gives every SM a warp), ragged
+  for nv in (NV, 18):
+    A = torch.from_numpy(_spd(rng, nv, 8189)).to(dev)
+    b = torch.from_numpy(rng.normal(size=(nv, 8189)).astype(np.float32)).to(dev)
+    xk, xp = plk.spd_solve_lanes(A, b), plk.spd_solve_plain(A, b)
+    _assert_k1_close(xk, xp)
+  # K2 on the ragged batch, and at 100 slots (no multiple of 32) with ties
+  for ncon, pairs, k in ((NCON, PAIRS, K), (100, 25, 4)):
+    dist = np.round(rng.uniform(-0.01, 0.3, size=(ncon, 13)) * 20) / 20
+    feat = rng.normal(size=(ncon, 13, 13)).astype(np.float32)
+    table = rng.normal(size=(pairs, 13 + NV)).astype(np.float32)
+    args = (((pairs, k, 0),), NSEL,
+            torch.from_numpy(dist.astype(np.float32)).to(dev),
+            torch.from_numpy(feat).to(dev), torch.from_numpy(table).to(dev))
+    assert torch.equal(plk.contact_select_lanes(*args),
+                       plk.contact_select_plain(*args))

@@ -8,12 +8,14 @@ only the times of K1 and K2 through the public wrappers of the port found
 under DIR, a directory inside this repository that holds another commit of
 it (this tree when DIR is left out): the way to time a parent's kernels and
 this tree's within one call on one card (see wrapper_times).  It imports
-the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Two served paths
-are driven, each through ``envs.load`` → ``wrap_for_training`` → ``env.step``
-with a trained policy run deterministically: cube-push
+the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Three
+paths are driven.  Two serve a trained policy run deterministically, each
+through ``envs.load`` → ``wrap_for_training`` → ``env.step``: cube-push
 (``AirbotCubePushTrain``, kernels K1, K2, K3) and the Go2 joystick
-(``Go2JoystickFlatTerrain``, kernels K1, K4).  Phases; any failure exits
-non-zero before the result line is printed:
+(``Go2JoystickFlatTerrain``, kernels K1, K4).  The third trains: PPO on
+cube-push through ``ppo.train`` at the tuned width (K1, K2, K3 in its
+rollouts).  Phases; any failure exits non-zero before the result line is
+printed:
 
   1. device   a CUDA card is required (no CPU path); print the card's name and
               power limit; TF32 off; build the four CUDA kernels from
@@ -29,9 +31,10 @@ non-zero before the result line is printed:
               rows (basis off, nv 20) at 6 x 6, where its objective is also
               held beside K3's and its time is taken.  Every kernel also on
               its recorded inputs cut by 3 envs (a batch that is no
-              multiple of the envs per block), K1 and K2 also on the first
-              5 envs and at every number of envs per block that fits (K1:
-              both of its decompositions at both widths), same criteria;
+              multiple of the envs per block), K1, K2 and K3 at every
+              number of envs per block that fits (K1: both of its
+              decompositions at both widths), K1 and K2 also on the first
+              5 envs, same criteria;
               K1 with NaN in the triangle it must not read (see k1_row).
               Times of the kernel, the plain version and, for K1 and K2,
               one PyTorch library call; for every kernel also the device
@@ -62,14 +65,30 @@ non-zero before the result line is printed:
               runs under torch.profiler: wall and device busy time, the
               device's idle share, the number of device kernels, and the
               host time of each stage.
-  4. result   one JSON line of the kernels, the card's name and power limit,
-              and last the line {"ok": true, "device": {...}}.
+  4. training ``ppo.train`` with ``configs.ppo_config('AirbotCubePushTrain')``
+              (1024 envs, batch 256 x 32 minibatches, unroll 10, 8 updates
+              per batch, policy 32 x 4, value 256 x 5) for two training
+              steps (163840 env-steps) in one epoch; training env-steps/s,
+              rollout ms per control step and SGD ms per minibatch (CUDA
+              events, no synchronise), each step's loss metrics; fails on a
+              non-finite metric, on env steps or a normalizer count other
+              than the rollouts gave, on parameters left unchanged, on
+              launch counts other than the rollouts' substeps give.  Then
+              K1, K2 and K3 on the recorded inputs of the last training
+              substep (B 1024) under phase 2's checks, one recorded
+              minibatch step on the card against the CPU in fp32 and
+              float64 (see sgd_check), and the evaluator, deterministic, on
+              128 envs for a cut episode of 25 control steps.
+  5. result   one JSON line of the kernels (launches of all three paths),
+              the card's name and power limit, and last the line
+              {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -91,6 +110,9 @@ GO2_MAX_DONE_SHARE = 0.05
 SEED = 0
 DEV = 'cuda'  # every phase runs on the card
 REF_ENVS = 256  # envs of the batch run also on the CPU, fp32 and float64
+TRAIN_STEPS = 2  # PPO training steps of the tuned cube-push config
+EVAL_ENVS = 128  # the evaluator's envs after training (ppo.train's default)
+EVAL_STEPS = 25  # control steps of its episode, cut from 1200
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the full 700 W
 # limit): device-memory bytes/s and float32 FLOP/s outside the tensor cores.
@@ -303,14 +325,17 @@ def bound_ms(nbytes, flops):
 # -- phases ------------------------------------------------------------------
 
 
-def record_calls(lk, fn):
-  """Run fn() with the kernel wrappers recording their arguments."""
+def record_calls(lk, fn, keep=None):
+  """Run fn() with the kernel wrappers recording their arguments (of the
+  last ``keep`` calls of each wrapper; all calls by default)."""
   calls = {name: [] for name in KERNELS}
   real = {name: getattr(lk, name) for name in KERNELS}
 
   def recorder(name):
     def rec(*args):
       calls[name].append(args)
+      if keep is not None:
+        del calls[name][:-keep]
       return real[name](*args)
     return rec
 
@@ -560,7 +585,7 @@ def check_k2_sizes(torch, lk):
     raise SystemExit('K2 disagrees with its plain version')
 
 
-def k2_row(torch, lk, args):
+def k2_row(torch, lk, args, tag='cube-push'):
   """K2 on the recorded selection: exact equality with the plain version on
   the recorded dist and on dist rounded to exact ties, each also at every E
   that fits, on the batch cut by 3 envs and on its first 5 envs.  Times on
@@ -590,10 +615,10 @@ def k2_row(torch, lk, args):
 
   run = lambda: lk.contact_select_lanes(*args)
   name = 'contact_select_kernel'
-  e_sweep(torch, lk, f'K2 cube-push, B {B}', run, name)
+  e_sweep(torch, lk, f'K2 {tag}, B {B}', run, name)
   big = tuple(torch.cat([a] * (GO2_ENVS // B), dim=-1).contiguous()
               if torch.is_tensor(a) and a is not ptab else a for a in args)
-  e_sweep(torch, lk, f'K2 cube-push inputs tiled to B {big[2].shape[-1]}',
+  e_sweep(torch, lk, f'K2 {tag} inputs tiled to B {big[2].shape[-1]}',
           lambda: lk.contact_select_lanes(*big), name)
   n_tied = int((tied[:-1] == tied[1:]).sum().item())
   return dict(
@@ -754,8 +779,8 @@ def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
 def k3_ratios(torch, lk, args):
   """K3 on one system (the arguments of ``newton_lanes_pyr_t``), per env,
   after 1 Newton step and after the full schedule, under the criteria set
-  out in check_kernels.  Returns (max |kernel − plain|, {(who, steps): (φ,
-  force, qfrc) worst error/tolerance over envs})."""
+  out in k3_row.  Returns (max |kernel − plain|, {(who, steps): (φ, force,
+  qfrc) worst error/tolerance over envs})."""
   f64 = lambda a: a.double() if torch.is_tensor(a) else a
   outk = lk.newton_lanes_pyr_t(*args)
   outp = lk.newton_pyr_plain(*args)
@@ -767,7 +792,7 @@ def k3_ratios(torch, lk, args):
     a_it = (iters,) + tuple(args[1:])
     phi64 = k3_cost(torch, lk, args, lk.newton_pyr_plain(
         iters, *a64[1:])[0])
-    tol_phi = 1e-6 * (phi0 - phi64 + phi64) + 1e-30
+    tol_phi = (1e-5 if iters == 1 else 1e-6) * phi0 + 1e-30
     for who, outs in (('plain', lk.newton_pyr_plain(*a_it)),
                       ('kernel', lk.newton_lanes_pyr_t(*a_it))):
       x, force, qfrc = (o.double() for o in outs)
@@ -867,53 +892,73 @@ def check_kernels(torch, lk, calls):
                                    calls['spd_solve_lanes'][-2:])
   rows['contact_select_lanes'] = k2_row(torch, lk,
                                         calls['contact_select_lanes'][-1])
-
-  # K3 on the assembled system of the recorded substep, per env, after
-  # 1 Newton step and after the full 6.  x is held by the objective it
-  # reaches, since fp32 rounding (in any summation order) moves x along
-  # the directions where φ is flat, by more than any per-env tolerance on x
-  # that a wrong kernel would fail; force and qfrc must be those of the
-  # kernel's own x, to the fp32 rounding of the sums they come from:
-  #  - φ(xk) − φ(x64) <= 1e-6·(φ(x0) − φ(x64) + φ(x64)), φ >= 0 in float64,
-  #    x64 the plain version's result in float64;
-  #  - force: |fk − f(xk)| <= 1024·u·D(Σ|J||xk| + |aref|) row by row, f(xk)
-  #    the plain version run for 0 steps from xk in float64;
-  #  - qfrc: |qk − (Jᵀfk + Uᵀw(fk))| <= 64·u·(|J|ᵀ|fk| + |U|ᵀ|w(fk)|).
   args = calls['newton_lanes_pyr_t'][-1]
-  err, ratios = k3_ratios(torch, lk, args)
-  fmt = lambda r: '/'.join(f'{v:.3g}' for v in r)
-  fmt_all = lambda rs: 'phi/force/qfrc ' + ', '.join(
-      f'{who} {it} step{"s" if it > 1 else ""} {fmt(r)}'
-      for (who, it), r in rs.items())
-  kernel_ok = lambda rs: max(
-      max(r) for (who, _), r in rs.items() if who == 'kernel') <= 1.0
-  # the same on a batch that is no multiple of the envs per block
-  cut = ragged(torch, args)
-  rerr, rratios = k3_ratios(torch, lk, cut)
-  log(f'K3 on a ragged batch (B {cut[3].shape[-1]}): max |kernel - plain| '
-      f'{rerr:.3e}; {fmt_all(rratios)} '
-      f'{"ok" if kernel_ok(rratios) else "FAIL"}')
-  rows['newton_lanes_pyr_t'] = dict(
-      max_abs_err=err,
-      ok=kernel_ok(ratios) and kernel_ok(rratios),
-      ratios=fmt_all(ratios),
-      work=k3_work(*args),
-      ms=time_ms(torch, lambda: lk.newton_lanes_pyr_t(*args), 20),
-      plain_ms=time_ms(torch, lambda: lk.newton_pyr_plain(*args), 3, 1),
-      library_ms=None,
-      note='per env, after 1 and 6 Newton steps: phi(xk) within 1e-6 of '
-           'the float64 solve; force and qfrc those of xk and of the force '
-           'to fp32 rounding (1024u, 64u of their sums)',
-      profiler_ms=profiler_ms(torch, lambda: lk.newton_lanes_pyr_t(*args),
-                              20, 'newton_pyr_kernel'),
-  )
+  rows['newton_lanes_pyr_t'] = k3_row(torch, lk, 'cube-push', args)
   e_sweep(torch, lk, 'K3 cube-push',
           lambda: lk.newton_lanes_pyr_t(*args), 'newton_pyr_kernel')
   schedule_split(torch, 'K3 cube-push',
                  lambda it, ls: lk.newton_lanes_pyr_t(it, ls, *args[2:]),
                  args[0], args[1], 'newton_pyr_kernel')
-
   return rows
+
+
+def k3_row(torch, lk, tag, args):
+  """K3 on the assembled system of a recorded substep, per env, after
+  1 Newton step and after the full 6, at the E the wrapper chooses, at
+  every other E that fits and on the batch cut by 3 envs.  x is held by the
+  objective it reaches, since fp32 rounding (in any summation order) moves
+  x along the directions where φ is flat, by more than any per-env
+  tolerance on x that a wrong kernel would fail; force and qfrc must be
+  those of the kernel's own x, to the fp32 rounding of the sums they come
+  from:
+   - φ(xk) − φ(x64) <= tol·φ(x0), φ >= 0 in float64, x64 the plain
+     version's result in float64; tol is 1e-6 after 6 Newton steps and
+     1e-5 after one, as for K4 and for the same reason (k4_ratios); on a
+     substep of cube-push training the plain fp32 version is past 1e-6
+     after one step as well;
+   - force: |fk − f(xk)| <= 1024·u·D(Σ|J||xk| + |aref|) row by row, f(xk)
+     the plain version run for 0 steps from xk in float64;
+   - qfrc: |qk − (Jᵀfk + Uᵀw(fk))| <= 64·u·(|J|ᵀ|fk| + |U|ᵀ|w(fk)|)."""
+  err, ratios = k3_ratios(torch, lk, args)
+  fmt = lambda r: '/'.join(f'{v:.3g}' for v in r)
+  fmt_all = lambda rs: 'phi/force/qfrc ' + ', '.join(
+      f'{who} {it} step{"s" if it > 1 else ""} {fmt(r)}'
+      for (who, it), r in rs.items())
+  kernel_worst = lambda rs: max(
+      max(r) for (who, _), r in rs.items() if who == 'kernel')
+  seen, parts = {}, []
+  with force_E(lk, None, seen):
+    lk.newton_lanes_pyr_t(*args)
+  e_ok = True
+  for E in seen['fits']:
+    with force_E(lk, E):
+      r = kernel_worst(k3_ratios(torch, lk, args)[1])
+    parts.append(f'E {E} {r:.3g}')
+    e_ok = e_ok and r <= 1.0
+  log(f'K3 {tag}: kernel worst error/tolerance at each E (chosen '
+      f'{seen["chosen"]}): ' + ', '.join(parts) + (' ok' if e_ok else ' FAIL'))
+  # the same on a batch that is no multiple of the envs per block
+  cut = ragged(torch, args)
+  rerr, rratios = k3_ratios(torch, lk, cut)
+  log(f'K3 {tag} on a ragged batch (B {cut[3].shape[-1]}): max |kernel - '
+      f'plain| {rerr:.3e}; {fmt_all(rratios)} '
+      f'{"ok" if kernel_worst(rratios) <= 1.0 else "FAIL"}')
+  return dict(
+      max_abs_err=err,
+      ok=kernel_worst(ratios) <= 1.0 and kernel_worst(rratios) <= 1.0
+      and e_ok,
+      ratios=fmt_all(ratios),
+      work=k3_work(*args),
+      ms=time_ms(torch, lambda: lk.newton_lanes_pyr_t(*args), 20),
+      plain_ms=time_ms(torch, lambda: lk.newton_pyr_plain(*args), 3, 1),
+      library_ms=None,
+      note=f'B {args[3].shape[-1]}; per env, after 1 and 6 Newton steps, '
+           'at every E: phi(xk) within 1e-5 and 1e-6 of phi(x0) of the '
+           'float64 solve; force and qfrc those of xk and of the force to '
+           'fp32 rounding (1024u, 64u of their sums)',
+      profiler_ms=profiler_ms(torch, lambda: lk.newton_lanes_pyr_t(*args),
+                              20, 'newton_pyr_kernel'),
+  )
 
 
 def report(rows):
@@ -1169,6 +1214,240 @@ def load_path(torch, port, name, params, n_envs, length, gen, **policy_kw):
   return env0, env, policy, env.reset(gen)
 
 
+def recorded_sgd_step(torch, port, rec, dev, dtype):
+  """(networks, run): the recorded minibatch's networks, normalizer,
+  minibatch and draw on ``dev`` in ``dtype``, and run() taking one
+  ``ppo.minibatch_step`` there with a fresh Adam (as the first minibatch
+  has) and returning its metrics."""
+  net = rec['factory']()
+  net.load_state_dict(rec['params'])
+  net.to(dev, dtype)
+  opt = port.ppo.make_optimizer(net.parameters(), rec['lr'])
+  cast = lambda x: x.to(dev, dtype if x.is_floating_point() else None)
+  args = (net, opt, port.rs.to(rec['normalizer'], dev, dtype),
+          port.wrappers.tree_map(cast, rec['data']), cast(rec['noise']),
+          rec['loss_kwargs'], rec['max_grad_norm'])
+  return net, lambda: port.ppo.minibatch_step(*args)
+
+
+def profile_sgd(torch, rec, port, step_ms) -> None:
+  """One minibatch step on the card under torch.profiler: device busy
+  time, its share of ``step_ms`` (the measured ms per minibatch in
+  training), device kernels launched."""
+  from torch.profiler import ProfilerActivity, profile
+
+  _, run = recorded_sgd_step(torch, port, rec, DEV, torch.float32)
+  run()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+  kernels = [e for e in prof.key_averages()
+             if e.device_type != torch.autograd.DeviceType.CPU]
+  busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+  log(f'train SGD profile: 1 minibatch step, device busy {busy_ms:.3f} ms, '
+      f'idle share {1 - busy_ms / step_ms:.4f} of the {step_ms:.3f} ms per '
+      f'minibatch in training; under the profiler wall {wall_ms:.3f} ms; '
+      f'{sum(e.count for e in kernels)} device kernels')
+
+
+def sgd_check(torch, port, rec) -> None:
+  """The card against the CPU on one recorded minibatch of the first
+  training step: from its parameters, normalizer, minibatch (the
+  permutation applied) and entropy draw, one ``ppo.minibatch_step`` (PPO
+  loss, backward, clip, Adam; a fresh Adam, as the first minibatch has)
+  on the card in fp32, on the CPU in fp32 and on the CPU in float64.  Per
+  loss metric |m − m64| <= 1e-5·|m64| + 1e-6, per parameter tensor
+  max |g − g64| <= 1e-4·max |g64| for the clipped gradient, for the card
+  and for the plain CPU fp32 run alike (a criterion the CPU run fails is
+  the wrong criterion)."""
+  f64 = torch.float64
+  out = {}
+  for tag, dev, dtype in (('card', DEV, torch.float32),
+                          ('cpu', 'cpu', torch.float32), ('f64', 'cpu', f64)):
+    net, run = recorded_sgd_step(torch, port, rec, dev, dtype)
+    metrics = run()
+    out[tag] = ({k: v.item() for k, v in metrics.items()},
+                {k: p.grad.to('cpu', f64) for k, p in net.named_parameters()},
+                {k: p.detach().to('cpu', f64)
+                 for k, p in net.named_parameters()})
+  m64, g64, p64 = out['f64']
+  ok = True
+  for tag in ('card', 'cpu'):
+    m, g, p = out[tag]
+    loss_ratio = max(abs(m[k] - m64[k]) / (1e-5 * abs(m64[k]) + 1e-6)
+                     for k in m)
+    grad_ratio = max(((g[k] - g64[k]).abs().max()
+                      / (1e-4 * g64[k].abs().max() + 1e-30)).item()
+                     for k in g)
+    step = max((p[k] - p64[k]).abs().max().item() for k in p) / rec['lr']
+    good = loss_ratio <= 1.0 and grad_ratio <= 1.0
+    log(f'train SGD check, {tag} fp32 against CPU float64 on one minibatch '
+        f'({rec["data"].reward.shape[0]} sequences x '
+        f'{rec["data"].reward.shape[1]} steps): worst loss error/tolerance '
+        f'{loss_ratio:.3g}, worst gradient error/tolerance {grad_ratio:.3g}; '
+        f'parameters after the Adam step differ by {step:.3g} x lr '
+        f'{"ok" if good else "FAIL"}')
+    ok = ok and good
+  log('train SGD check, card - CPU fp32: max |loss metric| '
+      + f'{max(abs(out["card"][0][k] - out["cpu"][0][k]) for k in m64):.3e}')
+  if not ok:
+    raise SystemExit('train: the card\'s SGD step disagrees with the CPU')
+
+
+def train_phase(torch, port, lk, card):
+  """PPO on cube-push at the tuned width: ``ppo.train`` with
+  ``configs.ppo_config`` (1024 envs, batch 256 x 32 minibatches, unroll 10,
+  8 updates per batch) for TRAIN_STEPS training steps in one epoch, no
+  evaluation inside.  Each rollout and each minibatch step is timed by CUDA
+  events recorded at its boundaries, with no synchronise, so training/sps
+  is the trainer's own; the kernel wrappers keep the arguments of their
+  last calls.  Then K1, K2 and K3 on the recorded inputs of the last
+  training substep (B 1024, E of the training batch) against their plain
+  versions, as phase 2 holds them, the card-vs-CPU SGD check on the first
+  minibatch, and the evaluator, deterministic, on EVAL_ENVS envs for a cut
+  episode of EVAL_STEPS control steps.  Returns the kernels' launches in
+  training."""
+  import functools
+
+  import_train(port)
+  cfg = port.configs.ppo_config(ENV)
+  nf = {k: tuple(v) for k, v in cfg.pop('network_factory').items()}
+  per_step = (cfg.batch_size * cfg.unroll_length * cfg.num_minibatches
+              * cfg.action_repeat)
+  cfg.update(num_timesteps=TRAIN_STEPS * per_step, num_evals=0)
+  factory = functools.partial(port.networks.make_ppo_networks, **nf)
+  env0 = port.envs.load(ENV, device=DEV)
+  rec, unroll_ev, sgd_ev, step_metrics, progress = {}, [], [], [], []
+  seen = [0]  # observations the rollouts produced
+  real_unroll, real_step = port.acting.generate_unroll, port.ppo.minibatch_step
+
+  def timed(events, fn, *a, **k):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn(*a, **k)
+    end.record()
+    events.append((start, end))
+    return out
+
+  def unroll(*a, **k):
+    out = timed(unroll_ev, real_unroll, *a, **k)
+    seen[0] += out[1].reward.numel()
+    return out
+
+  def step(networks, optimizer, normalizer, data, noise, loss_kwargs,
+           max_grad_norm):
+    if not rec:
+      rec.update(params={k: v.detach().clone()
+                         for k, v in networks.state_dict().items()},
+                 normalizer=normalizer, data=data, noise=noise,
+                 loss_kwargs=loss_kwargs, max_grad_norm=max_grad_norm,
+                 lr=optimizer.param_groups[0]['lr'],
+                 factory=lambda: factory(env0.observation_size,
+                                         env0.action_size))
+    m = timed(sgd_ev, real_step, networks, optimizer, normalizer, data, noise,
+              loss_kwargs, max_grad_norm)
+    step_metrics.append(m)
+    return m
+
+  out = []
+  port.acting.generate_unroll, port.ppo.minibatch_step = unroll, step
+  zero_launches(lk)
+  try:
+    calls = record_calls(lk, lambda: out.append(port.ppo.train(
+        environment=env0, network_factory=factory, seed=SEED, device=DEV,
+        progress_fn=lambda s, m: progress.append(s), **cfg)), keep=2)
+  finally:
+    port.acting.generate_unroll, port.ppo.minibatch_step = (real_unroll,
+                                                            real_step)
+  launches = dict(lk.LAUNCHES)
+  make_policy, (norm, net), metrics = out[0]
+  torch.cuda.synchronize()
+  unroll_ms = [s.elapsed_time(e) for s, e in unroll_ev]
+  sgd_ms = [s.elapsed_time(e) for s, e in sgd_ev]
+  T, n_sub = cfg.unroll_length, env0.n_substeps
+  substeps = len(unroll_ms) * T * n_sub
+  n_mb = cfg.num_updates_per_batch * cfg.num_minibatches
+  log(f'train: {ENV}, {cfg.num_envs} envs, {TRAIN_STEPS} training steps of '
+      f'{per_step} env-steps ({len(unroll_ms)} unrolls of {T} control steps, '
+      f'{len(sgd_ms)} minibatch steps); training/sps '
+      f'{metrics["training/sps"]:.1f} env-steps/s, training/walltime '
+      f'{metrics["training/walltime"]:.3f} s; CUDA-event spans, no '
+      f'synchronise: rollout {sum(unroll_ms) / (len(unroll_ms) * T):.3f} ms '
+      f'per control step at B {cfg.num_envs} ({sum(unroll_ms) / substeps:.3f} '
+      f'ms per substep); SGD {sum(sgd_ms) / len(sgd_ms):.3f} ms per minibatch '
+      f'(median {sorted(sgd_ms)[len(sgd_ms) // 2]:.3f}); rollouts and SGD '
+      f'{(sum(unroll_ms) + sum(sgd_ms)) / 1e3:.3f} s; launches in '
+      f'training {launches}; card {card}')
+  failed = []
+  for i in range(TRAIN_STEPS):
+    ms = step_metrics[i * n_mb:(i + 1) * n_mb]
+    mean = {k: torch.stack([m[k] for m in ms]).mean().item() for k in ms[0]}
+    log(f'train step {i + 1}: ' + ', '.join(f'{k} {v:.6g}'
+                                            for k, v in mean.items()))
+    failed += [f'step {i + 1} {k}' for k, v in mean.items()
+               if not math.isfinite(v)]
+  failed += [k for k, v in metrics.items() if not math.isfinite(v)]
+  if progress != [TRAIN_STEPS * per_step]:
+    failed.append(f'env steps {progress} != {TRAIN_STEPS * per_step}')
+  if float(norm.count) != seen[0]:
+    failed.append(f'normalizer count {float(norm.count)} != {seen[0]} '
+                  'observations')
+  same = [k for k, v in net.state_dict().items()
+          if torch.equal(v, rec['params'][k])]
+  if same:
+    failed.append(f'parameters unchanged by training: {same}')
+  # per substep K1 twice, K2 and K3 once; the reset's forward once each
+  expect = {'spd_solve_lanes': 2 * substeps + 1,
+            'contact_select_lanes': substeps + 1,
+            'newton_lanes_pyr_t': substeps + 1, '_newton_lanes_core': 0}
+  if launches != expect:
+    failed.append(f'launches in training {launches} != {expect}')
+  if failed:
+    raise SystemExit(f'train phase failed: {failed}')
+
+  # K1, K2 and K3 on the inputs of the last training substep: the batch of
+  # training, and so the envs per block it makes the wrappers choose
+  B, tag = cfg.num_envs, f'training, B {cfg.num_envs}'
+  if calls['spd_solve_lanes'][-1][1].shape[-1] != B:
+    raise SystemExit('train: the recorded kernel inputs are not of training')
+  k3_args = calls['newton_lanes_pyr_t'][-1]
+  rows = {
+      f'K1 spd_solve_lanes ({tag})': k1_row(torch, lk, tag,
+                                            calls['spd_solve_lanes'][-2:]),
+      f'K2 contact_select_lanes ({tag})': k2_row(
+          torch, lk, calls['contact_select_lanes'][-1], tag='training'),
+      f'K3 newton_lanes_pyr_t ({tag})': k3_row(torch, lk, tag, k3_args),
+  }
+  e_sweep(torch, lk, f'K3 {tag}', lambda: lk.newton_lanes_pyr_t(*k3_args),
+          'newton_pyr_kernel')
+  del calls, k3_args
+  report(rows)
+
+  sgd_check(torch, port, rec)
+  profile_sgd(torch, rec, port, sorted(sgd_ms)[len(sgd_ms) // 2])
+
+  eval_env = port.wrappers.EvalWrapper(port.wrappers.wrap_for_training(
+      env0, episode_length=EVAL_STEPS, num_envs=EVAL_ENVS))
+  evaluator = port.acting.Evaluator(
+      eval_env, functools.partial(make_policy, deterministic=True),
+      num_eval_envs=EVAL_ENVS, episode_length=EVAL_STEPS, action_repeat=1,
+      generator=torch.Generator(device=DEV).manual_seed(SEED))
+  ev = evaluator.run_evaluation((norm, net), {})
+  log(f'train eval: {EVAL_ENVS} envs, deterministic, episode cut to '
+      f'{EVAL_STEPS} control steps (reduced from {cfg.episode_length}): '
+      f'eval/episode_reward {ev["eval/episode_reward"]:.4f} (std '
+      f'{ev["eval/episode_reward_std"]:.4f}), avg episode length '
+      f'{ev["eval/avg_episode_length"]:.2f}, nan episodes '
+      f'{ev["eval/nan_episodes"]}, {ev["eval/epoch_eval_time"]:.3f} s')
+  if not math.isfinite(ev['eval/episode_reward']) or ev['eval/nan_episodes']:
+    raise SystemExit('train eval: a non-finite episode reward')
+  return launches
+
+
 def wrapper_times(torch, port, card) -> None:
   """The mode ``--wrapper-times [DIR]``: K1 at both paths' shapes and K2,
   through ``spd_solve_lanes`` and ``contact_select_lanes`` of the port
@@ -1214,11 +1493,16 @@ def wrapper_times(torch, port, card) -> None:
     del calls, env, policy, state
 
 
-def import_port(root=None):
-  """The port's modules that this script drives, from the checkout at
-  ``root``: this file's own directory (the default) or a directory below
-  it."""
+def _port_module(name):
   import importlib
+
+  return importlib.import_module('rsr_mjx_tpu_torch.' + name)
+
+
+def import_port(root=None):
+  """The port's modules that every version of it has (``--wrapper-times``
+  imports another commit's), from the checkout at ``root``: this file's
+  own directory (the default) or a directory below it."""
   import types
 
   if root is not None:
@@ -1226,11 +1510,18 @@ def import_port(root=None):
     if os.path.commonpath([root, here]) != here:
       raise SystemExit(f'chip_smoke: {root} lies outside {here}')
     sys.path.insert(0, root)
-  mod = lambda name: importlib.import_module('rsr_mjx_tpu_torch.' + name)
+  mod = _port_module
   return types.SimpleNamespace(
       envs=mod('envs'), wrappers=mod('envs.wrappers'),
       cuda_build=mod('physics.cuda_build'), fwd_fused=mod('physics.fwd_fused'),
       lk=mod('physics.linalg_kernels'), networks=mod('train.networks'))
+
+
+def import_train(port):
+  """Add the trainer's modules to ``port`` (phase 4)."""
+  mod = _port_module
+  port.ppo, port.acting = mod('train.ppo'), mod('train.acting')
+  port.configs, port.rs = mod('train.configs'), mod('train.running_statistics')
 
 
 def main() -> int:
@@ -1342,15 +1633,19 @@ def main() -> int:
   g_state, g_launches, g_step_ms = rollout_go2(torch, lk, g_env0, g_env,
                                                g_policy, g_state, card)
   profile_control_step(torch, 'go2', g_env, g_policy, g_state, g_step_ms)
+  del g_env0, g_env, g_policy, g_state
 
-  # -- 4. result
+  # -- 4. training
+  t_launches = train_phase(torch, port, lk, card)
+
+  # -- 5. result
   log('kernels: ' + ', '.join(f'{v[0]} {k}' for k, v in KERNELS.items()))
   out = []
   for name, (short, src, tpu) in KERNELS.items():
     r = rows[name]
-    count = launches[name] + g_launches[name]
+    count = launches[name] + g_launches[name] + t_launches[name]
     if count <= 0:
-      raise SystemExit(f'{name} was launched by neither path')
+      raise SystemExit(f'{name} was launched by no path')
     # ms and library_ms are device times from torch.profiler (the kernel by
     # name; the library call as the sum of its kernels): CUDA events over
     # back-to-back launches, printed beside them above, time the Python

@@ -53,14 +53,17 @@ class Go2Env(core.Env):
 
     m = io.load_model_npz(snapshot.path(task), device=device)
     # the config's constants rounded to float32 whatever the dtype, so that
-    # a float64 run poses the float32 run's problem
+    # a float64 run poses the float32 run's problem.  As in the JAX env,
+    # sim_dt comes from the overridden config and Kp, Kd from the config
+    # handed in (rsr_mjx_tpu/envs/go2/base.py:63-65): overrides of Kp and
+    # Kd do not reach the model
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
     damping = m.dof_damping.clone()
-    damping[6:] = f32(cfg.Kd)
+    damping[6:] = f32(config['Kd'])
     gainprm = m.actuator_gainprm.clone()
-    gainprm[:, 0] = f32(cfg.Kp)
+    gainprm[:, 0] = f32(config['Kp'])
     biasprm = m.actuator_biasprm.clone()
-    biasprm[:, 1] = -f32(cfg.Kp)
+    biasprm[:, 1] = -f32(config['Kp'])
     m = m.replace(
         opt=dataclasses.replace(m.opt, timestep=f32(cfg.sim_dt)),
         numeric=dict(m.numeric, dof_damping=damping,

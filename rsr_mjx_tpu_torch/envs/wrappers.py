@@ -10,6 +10,7 @@ stack without domain randomization:
     their reset-time info;
   - AutoResetWrapper: restores the cached first state where done.
 The JAX StrongTypeWrapper clears JAX weak types and has no counterpart.
+``EvalWrapper`` goes above the stack for the evaluator.
 
 Every step builds new ``info``/``metrics`` dicts, so a state returned by a
 step never aliases the dicts of the state it came from.
@@ -26,9 +27,9 @@ from rsr_mjx_tpu_torch.envs.core import Env, State, Wrapper
 
 def tree_map(fn, *trees):
   """Apply ``fn`` leafwise over tensors in matching dataclass (State, Data,
-  Contact) / dict / tuple / list structures; other leaves (python numbers,
-  static numpy arrays, a ``torch.Generator``, None) pass through from the
-  first tree."""
+  Contact) / dict / tuple / NamedTuple / list structures; other leaves
+  (python numbers, static numpy arrays, a ``torch.Generator``, None) pass
+  through from the first tree."""
   t0 = trees[0]
   if isinstance(t0, torch.Tensor):
     return fn(*trees)
@@ -40,7 +41,9 @@ def tree_map(fn, *trees):
   if isinstance(t0, dict):
     return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
   if isinstance(t0, (tuple, list)):
-    return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
+    leaves = [tree_map(fn, *xs) for xs in zip(*trees)]
+    # a NamedTuple (a Transition) takes its fields as arguments
+    return type(t0)(*leaves) if hasattr(t0, '_fields') else type(t0)(leaves)
   return t0
 
 
@@ -197,6 +200,47 @@ class AutoResetWrapper(Wrapper):
     data = tree_map(where_done, state.info['first_data'], state.data)
     obs = tree_map(where_done, state.info['first_obs'], state.obs)
     return state.replace(data=data, obs=obs)
+
+
+@dataclasses.dataclass
+class EvalMetrics:
+  """Per-env metrics summed over the episode, whether the episode is still
+  running (1) or has ended (0), and the steps it took (brax EvalMetrics)."""
+
+  episode_metrics: dict
+  active_episodes: torch.Tensor
+  episode_steps: torch.Tensor
+
+
+class EvalWrapper(Wrapper):
+  """Accumulates each env's reward and metrics up to its first done, in
+  ``info['eval_metrics']``, for the Evaluator; above ``wrap_for_training``,
+  whose ``steps`` it reads."""
+
+  def reset(self, *args) -> State:
+    state = self.env.reset(*args)
+    metrics = dict(state.metrics, reward=state.reward)
+    info = dict(state.info)
+    info['eval_metrics'] = EvalMetrics(
+        episode_metrics={k: torch.zeros_like(v) for k, v in metrics.items()},
+        active_episodes=torch.ones_like(state.reward),
+        episode_steps=torch.zeros_like(state.reward))
+    return state.replace(metrics=metrics, info=info)
+
+  def step(self, state: State, action: torch.Tensor) -> State:
+    info = dict(state.info)
+    em = info.pop('eval_metrics')
+    nstate = self.env.step(state.replace(info=info), action)
+    metrics = dict(nstate.metrics, reward=nstate.reward)
+    active = em.active_episodes
+    info = dict(nstate.info)
+    info['eval_metrics'] = EvalMetrics(
+        episode_metrics={k: v + metrics[k] * active
+                         for k, v in em.episode_metrics.items()},
+        active_episodes=active * (1 - nstate.done),
+        episode_steps=torch.where(active > 0, nstate.info['steps'],
+                                  em.episode_steps))
+    return nstate.replace(metrics=metrics, info=info)
 
 
 def wrap_for_training(env: Env, episode_length: int = 1000,

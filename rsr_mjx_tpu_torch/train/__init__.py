@@ -1,2 +1,4 @@
-"""Policy inference: observation normalization, the PPO policy network and
-loading trained parameters written by the JAX package."""
+"""PPO on one device: observation normalization, the policy and value
+networks, the loss, rollouts and evaluation, the trainer, checkpoints, the
+tuned configs and a command line (``python -m rsr_mjx_tpu_torch.train.cli``);
+and loading trained parameters written by either package."""

@@ -1,0 +1,105 @@
+"""PPO training from the command line.
+
+Counterpart of the PPO branch of ``scripts/train.py``: the tuned config of
+the env (``configs.ppo_config``), flags given on the command line over it,
+``ppo.train`` on one device, ``progress.json`` after every epoch, a
+checkpoint under ``<logdir>/checkpoints/<step>`` after every epoch, and
+``final_params.pkl`` at the end.  Experiment-logging sinks and rendering
+are not ported (ROADMAP item 8).
+
+    python -m rsr_mjx_tpu_torch.train.cli --env AirbotCubePushTrain \\
+        [--device cuda] [--logdir DIR] [--num_timesteps N] ...
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import time
+
+# flags that override the tuned value of the same name where the config
+# has it, as scripts/train.py's
+_INT_FLAGS = ('num_timesteps', 'num_envs', 'num_evals', 'batch_size',
+              'episode_length', 'num_eval_envs', 'unroll_length',
+              'num_minibatches', 'num_updates_per_batch')
+_FLOAT_FLAGS = ('learning_rate', 'discounting')
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+  p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+  p.add_argument('--env', default='AirbotCubePushTrain',
+                 help='registered env name')
+  p.add_argument('--logdir', default=None,
+                 help='output directory (default: logs/<run>)')
+  p.add_argument('--restore_checkpoint_path', default=None,
+                 help='a checkpoint directory to start from')
+  p.add_argument('--seed', type=int, default=0)
+  p.add_argument('--device', default='cuda',
+                 help="device of the envs and networks ('cpu' for a run "
+                      'with the kernels\' plain versions)')
+  for name in _INT_FLAGS:
+    p.add_argument(f'--{name}', type=int, default=None,
+                   help='override the tuned value')
+  for name in _FLOAT_FLAGS:
+    p.add_argument(f'--{name}', type=float, default=None,
+                   help='override the tuned value')
+  return p.parse_args(argv)
+
+
+def main(argv=None):
+  """Train as the flags say; returns (make_policy, params, metrics)."""
+  args = parse_args(argv)
+
+  from rsr_mjx_tpu_torch import envs
+  from rsr_mjx_tpu_torch.train import checkpoint, configs
+  from rsr_mjx_tpu_torch.train import networks as ppo_networks
+  from rsr_mjx_tpu_torch.train import ppo
+
+  env = envs.load(args.env, device=args.device)
+  eval_env = envs.load(args.env, device=args.device)
+  cfg = configs.ppo_config(args.env)
+  for key in _INT_FLAGS + _FLOAT_FLAGS:
+    if getattr(args, key) is not None and key in cfg:
+      cfg[key] = getattr(args, key)
+
+  logdir = args.logdir or os.path.join(
+      'logs', f'{args.env}-ppo-{time.strftime("%Y%m%d-%H%M%S")}')
+  ckpt_dir = os.path.join(logdir, 'checkpoints')
+  os.makedirs(ckpt_dir, exist_ok=True)
+  history = []
+
+  def progress_fn(step, metrics):
+    reward = metrics.get('eval/episode_reward', float('nan'))
+    print(f'step={step} reward={reward:.3f} '
+          f'sps={metrics.get("training/sps", 0.0):.0f}', flush=True)
+    history.append({'step': step, **{k: float(v) for k, v in
+                                     metrics.items()}})
+    with open(os.path.join(logdir, 'progress.json'), 'w') as f:
+      json.dump(history, f, indent=1)
+
+  def policy_params_fn(step, make_policy, params):
+    checkpoint.save(os.path.join(ckpt_dir, f'{step}'), params)
+
+  nf_cfg = dict(cfg.pop('network_factory'))
+  network_factory = functools.partial(
+      ppo_networks.make_ppo_networks,
+      policy_obs_key=nf_cfg.pop('policy_obs_key', 'state'),
+      value_obs_key=nf_cfg.pop('value_obs_key', 'state'),
+      **{k: tuple(v) for k, v in nf_cfg.items()})
+  make_policy, params, metrics = ppo.train(
+      environment=env, eval_env=eval_env, network_factory=network_factory,
+      progress_fn=progress_fn, policy_params_fn=policy_params_fn,
+      restore_checkpoint_path=args.restore_checkpoint_path, seed=args.seed,
+      device=args.device, **cfg)
+
+  final_path = os.path.join(logdir, 'final_params.pkl')
+  checkpoint.save_params(final_path, params)
+  print(f'training done; final params at {final_path}', flush=True)
+  print(f'final metrics: {metrics}', flush=True)
+  return make_policy, params, metrics
+
+
+if __name__ == '__main__':
+  main()

@@ -1,25 +1,36 @@
-"""The PPO policy network for inference, and loading trained parameters.
+"""Policy and value networks, the tanh-normal distribution, and trained
+parameters carried between the two packages.
 
-Counterpart of the inference side of ``rsr_mjx_tpu/train/networks.py``:
-an MLP with swish activations whose head gives the parameters of a
-tanh-normal distribution, whose mode ``tanh(loc)`` is the deterministic
-action.  ``load_ppo_params`` reads a ``final_params.pkl`` that the JAX
-trainer wrote, and ``params_from_numpy`` carries its weights into the
-port's ``nn.Module``.  Initialisation, sampling and losses come with the
-training slice.
+Counterpart of ``rsr_mjx_tpu/train/networks.py``: MLPs with swish
+activations (``F.silu``) initialised as the JAX ``MLP.init`` (LeCun
+uniform weights, zero biases), the policy head giving the parameters of a
+tanh-normal distribution whose mode ``tanh(loc)`` is the deterministic
+action, and ``PPONetworks`` with policy and value observation keys for
+dict observations.  Every function that draws takes its standard-normal
+draw as a tensor (``standard_normal`` draws one from a generator), so a
+caller can hand over another source's draws.
+
+``PPOPolicy`` is the deterministic policy alone, for serving.
+``load_ppo_params`` reads a PPO ``final_params.pkl`` of either package;
+``params_from_numpy`` carries its policy into a ``PPOPolicy`` and
+``ppo_params_from_numpy`` / ``ppo_params_to_numpy`` carry both networks
+and the whole normalizer state into and out of ``PPONetworks``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
+import math
 import pickle
-from typing import Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from rsr_mjx_tpu_torch.train import running_statistics
 from rsr_mjx_tpu_torch.train.running_statistics import RunningStatisticsState
 
 
@@ -72,11 +83,207 @@ class PPOPolicy(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Parameters written by the JAX trainer.
+# Training side: initialisation, the distribution, PPONetworks.
 # ---------------------------------------------------------------------------
 
-_STATS_CLASS = ('rsr_mjx_tpu.train.running_statistics',
-                'RunningStatisticsState')
+
+def lecun_uniform_(mlp: MLP, generator: torch.Generator) -> MLP:
+  """Initialise ``mlp`` in place as the JAX ``MLP.init``: each weight
+  U(−√(3/fan_in), √(3/fan_in)), each bias 0 (``nn.Linear``'s own init
+  differs).  Draws layer by layer on the generator's device."""
+  with torch.no_grad():
+    for layer in mlp.layers:
+      scale = math.sqrt(3.0 / layer.in_features)
+      u = torch.rand(layer.weight.shape, generator=generator,
+                     device=generator.device)
+      layer.weight.copy_(u * (2 * scale) - scale)
+      layer.bias.zero_()
+  return mlp
+
+
+def standard_normal(shape, generator: torch.Generator) -> torch.Tensor:
+  """A float32 standard-normal draw of ``shape`` on the generator's
+  device."""
+  return torch.randn(shape, generator=generator, device=generator.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalTanhDistribution:
+  """Normal with softplus std, squashed by tanh (the JAX class's
+  arithmetic).  ``logits`` are [loc | raw scale]; ``noise`` is a standard
+  normal draw shaped like loc."""
+
+  event_size: int
+  min_std: float = 0.001
+  var_scale: float = 1.0
+
+  def param_size(self) -> int:
+    return 2 * self.event_size
+
+  def _loc_scale(self, logits: torch.Tensor):
+    loc, raw = torch.chunk(logits, 2, dim=-1)
+    return loc, (F.softplus(raw) + self.min_std) * self.var_scale
+
+  def sample_no_postprocess(self, logits, noise):
+    loc, scale = self._loc_scale(logits)
+    return loc + scale * noise
+
+  def mode(self, logits):
+    return torch.tanh(self._loc_scale(logits)[0])
+
+  @staticmethod
+  def _log_det_jacobian(raw):
+    """log |d tanh(x) / dx| = 2 (log 2 − x − softplus(−2x))."""
+    return 2.0 * (math.log(2.0) - raw - F.softplus(-2.0 * raw))
+
+  def log_prob(self, logits, raw_actions):
+    """log p of pre-tanh actions, with the tanh change of variables."""
+    loc, scale = self._loc_scale(logits)
+    log_unnormalized = -0.5 * torch.square(raw_actions / scale - loc / scale)
+    log_normalization = 0.5 * math.log(2.0 * math.pi) + torch.log(scale)
+    return torch.sum(log_unnormalized - log_normalization
+                     - self._log_det_jacobian(raw_actions), dim=-1)
+
+  def postprocess(self, raw_actions):
+    return torch.tanh(raw_actions)
+
+  def entropy(self, logits, noise):
+    """Entropy estimate with the tanh Jacobian at the sample
+    loc + scale·noise (brax semantics)."""
+    loc, scale = self._loc_scale(logits)
+    entropy = 0.5 + 0.5 * math.log(2.0 * math.pi) + torch.log(scale)
+    raw = loc + scale * noise
+    return torch.sum(entropy + self._log_det_jacobian(raw), dim=-1)
+
+
+class PPONetworks(nn.Module):
+  """Policy and value MLPs and the action distribution.  Of a dict
+  observation the policy reads entry ``policy_obs_key`` and the value
+  ``value_obs_key`` (the asymmetric actor-critic of the Go2 configs)."""
+
+  def __init__(self, policy: MLP, value: MLP,
+               distribution: NormalTanhDistribution, obs_size: Any,
+               action_size: int, policy_obs_key: str = 'state',
+               value_obs_key: str = 'state'):
+    super().__init__()
+    self.policy = policy
+    self.value = value
+    self.distribution = distribution
+    self.obs_size = obs_size
+    self.action_size = action_size
+    self.policy_obs_key = policy_obs_key
+    self.value_obs_key = value_obs_key
+
+  def init(self, generator: torch.Generator) -> 'PPONetworks':
+    """Initialise as the JAX ``PPONetworks.init`` does (policy, then
+    value); the draws are the generator's, not JAX's."""
+    lecun_uniform_(self.policy, generator)
+    lecun_uniform_(self.value, generator)
+    return self
+
+  def policy_logits(self, obs):
+    if isinstance(obs, dict):
+      obs = obs[self.policy_obs_key]
+    return self.policy(obs)
+
+  def value_apply(self, obs):
+    if isinstance(obs, dict):
+      obs = obs[self.value_obs_key]
+    return torch.squeeze(self.value(obs), dim=-1)
+
+
+def _obs_width(obs_size, key):
+  size = obs_size[key] if isinstance(obs_size, Mapping) else obs_size
+  return size[-1] if isinstance(size, (tuple, list)) else size
+
+
+def make_ppo_networks(
+    obs_size, action_size: int,
+    policy_hidden_layer_sizes: Sequence[int] = (32, 32, 32, 32),
+    value_hidden_layer_sizes: Sequence[int] = (256, 256, 256, 256, 256),
+    activation: Callable = F.silu, policy_obs_key: str = 'state',
+    value_obs_key: str = 'state') -> PPONetworks:
+  """The JAX ``make_ppo_networks`` with its defaults, on the CPU; call
+  ``init`` for the JAX initialisation and ``.to`` for the device."""
+  dist = NormalTanhDistribution(event_size=action_size)
+  policy = MLP(_obs_width(obs_size, policy_obs_key),
+               tuple(policy_hidden_layer_sizes) + (dist.param_size(),),
+               activation)
+  value = MLP(_obs_width(obs_size, value_obs_key),
+              tuple(value_hidden_layer_sizes) + (1,), activation)
+  return PPONetworks(policy, value, dist, obs_size, action_size,
+                     policy_obs_key, value_obs_key)
+
+
+def make_inference_fn(networks: PPONetworks, normalizer=None):
+  """make_policy(params, deterministic) → policy(obs, generator) →
+  (action, extras), as the JAX function.  ``params`` is (normalizer state,
+  a ``PPONetworks`` holding the weights); ``normalizer`` is a function
+  (state, obs) → obs such as ``running_statistics.normalize``, or None.
+  The stochastic policy draws its noise from ``generator`` and returns the
+  pre-tanh action and its log-probability in ``extras``."""
+  dist = networks.distribution
+
+  def make_policy(params, deterministic: bool = False):
+    normalizer_params, net = params
+
+    def policy(obs, generator: torch.Generator):
+      if normalizer is not None:
+        obs = normalizer(normalizer_params, obs)
+      logits = net.policy_logits(obs)
+      if deterministic:
+        return dist.mode(logits), {}
+      noise = standard_normal(logits.shape[:-1] + (dist.event_size,),
+                              generator).to(logits.device)
+      raw = dist.sample_no_postprocess(logits, noise)
+      return dist.postprocess(raw), {
+          'log_prob': dist.log_prob(logits, raw), 'raw_action': raw}
+
+    return policy
+
+  return make_policy
+
+
+def ppo_params_from_numpy(normalizer: RunningStatisticsState,
+                          params: Mapping[str, Any], device='cuda'):
+  """(normalizer of float32 tensors on ``device``, ``PPONetworks`` state
+  dict) from the JAX layout: {'policy': [{'w': (in, out), 'b': (out,)},
+  ...], 'value': [...]} and the whole normalizer state.  ``nn.Linear``
+  keeps its weight as (out, in)."""
+  f32 = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
+  sd = {}
+  for net in ('policy', 'value'):
+    for i, layer in enumerate(params[net]):
+      sd[f'{net}.layers.{i}.weight'] = f32(layer['w']).T.contiguous()
+      sd[f'{net}.layers.{i}.bias'] = f32(layer['b'])
+  return running_statistics.map_state(f32, normalizer), sd
+
+
+def ppo_params_to_numpy(normalizer: RunningStatisticsState, networks):
+  """The inverse of ``ppo_params_from_numpy``: (normalizer of numpy
+  float32 arrays, {'policy': [{'w', 'b'}, ...], 'value': [...]}) from the
+  normalizer and a ``PPONetworks`` or its state dict."""
+  sd = networks.state_dict() if isinstance(networks, nn.Module) else networks
+  npy = lambda t: t.detach().cpu().numpy().astype(np.float32)
+  params = {}
+  for net in ('policy', 'value'):
+    n = sum(1 for k in sd if k.startswith(f'{net}.layers.')
+            and k.endswith('.weight'))
+    params[net] = [{'w': npy(sd[f'{net}.layers.{i}.weight']).T.copy(),
+                    'b': npy(sd[f'{net}.layers.{i}.bias'])}
+                   for i in range(n)]
+  return running_statistics.map_state(npy, normalizer), params
+
+
+# ---------------------------------------------------------------------------
+# Parameters written by a trainer, pickled.
+# ---------------------------------------------------------------------------
+
+# the normalizer class as the JAX trainer and the port's pickle it
+_STATS_CLASSES = {
+    ('rsr_mjx_tpu.train.running_statistics', 'RunningStatisticsState'),
+    ('rsr_mjx_tpu_torch.train.running_statistics', 'RunningStatisticsState'),
+}
 # numpy's array reconstruction, under numpy 2's module names and numpy 1's
 _NUMPY = {
     ('numpy', 'ndarray'), ('numpy', 'dtype'),
@@ -92,7 +299,7 @@ class _ParamsUnpickler(pickle.Unpickler):
   (mapped to the port's own); refuses every other global."""
 
   def find_class(self, module, name):
-    if (module, name) == _STATS_CLASS:
+    if (module, name) in _STATS_CLASSES:
       return RunningStatisticsState
     if (module, name) in _NUMPY:
       try:

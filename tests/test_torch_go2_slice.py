@@ -259,19 +259,22 @@ def test_go2_config_and_registry():
   assert len(cfg.reward_config.scales) == 21
   with pytest.raises(KeyError):
     cfg.update_from_flattened_dict({'noise_config.levle': 0.0})
-  # overrides reach the model (timestep, Kp, Kd) and the step count
-  env = penvs.load(ENV, device='cpu', config_overrides={
-      'sim_dt': 0.005, 'Kp': 40.0, 'Kd': 2.0})
+  # an override of sim_dt reaches the model and the step count; as in the
+  # JAX env, Kp and Kd come from the config handed in, before the
+  # overrides, so their overrides do not reach the model in either package
+  over = {'sim_dt': 0.005, 'Kp': 40.0, 'Kd': 2.0}
+  env = penvs.load(ENV, device='cpu', config_overrides=over)
   m = env.model
+  jm = jenvs.load(ENV, config_overrides=over).model
   assert env.n_substeps == 4 and float(m.opt.timestep) == np.float32(0.005)
-  assert float(m.actuator_gainprm[3, 0]) == 40.0
-  assert float(m.actuator_biasprm[3, 1]) == -40.0
-  assert float(m.dof_damping[7]) == 2.0 and float(m.dof_damping[5]) == 0.0
+  assert float(jm.opt.timestep) == np.float32(0.005)
+  for name in ('actuator_gainprm', 'actuator_biasprm', 'dof_damping'):
+    np.testing.assert_array_equal(getattr(m, name).numpy(),
+                                  np.asarray(getattr(jm, name)), err_msg=name)
+  assert float(m.actuator_gainprm[3, 0]) == 60.0
+  assert float(m.actuator_biasprm[3, 1]) == -60.0
+  assert float(m.dof_damping[7]) == cfg.Kd and float(m.dof_damping[5]) == 0.0
   assert cfg.Kp == 60.0  # the defaults are not touched
-  # the JAX env reads Kp and Kd from the config it was handed, before the
-  # overrides: there an override of them does not reach the model
-  jm = jenvs.load(ENV, config_overrides={'Kp': 40.0}).model
-  assert float(jm.actuator_gainprm[3, 0]) == 60.0
   # the other Go2 tasks are not registered yet
   assert 'Go2JoystickFlatTerrain' in penvs.registered_envs()
   for name in ('Go2JoystickRoughTerrain', 'Go2Getup', 'Go2Handstand',

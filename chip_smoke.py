@@ -8,14 +8,16 @@ only the times of K1 and K2 through the public wrappers of the port found
 under DIR, a directory inside this repository that holds another commit of
 it (this tree when DIR is left out): the way to time a parent's kernels and
 this tree's within one call on one card (see wrapper_times).  It imports
-the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Three
+the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Five
 paths are driven.  Two serve a trained policy run deterministically, each
 through ``envs.load`` → ``wrap_for_training`` → ``env.step``: cube-push
 (``AirbotCubePushTrain``, kernels K1, K2, K3) and the Go2 joystick
-(``Go2JoystickFlatTerrain``, kernels K1, K4).  The third trains: PPO on
+(``Go2JoystickFlatTerrain``, kernels K1, K4).  Three train: PPO on
 cube-push through ``ppo.train`` at the tuned width (K1, K2, K3 in its
-rollouts).  Phases; any failure exits non-zero before the result line is
-printed:
+rollouts), RSR policy training on cube-push through
+``rsr.pipeline.policy_params_training`` with the penalty on (K1, K2, K3),
+and PPO on the Go2 joystick at its tuned table (K1, K4).  Phases; any
+failure exits non-zero before the result line is printed:
 
   1. device   a CUDA card is required (no CPU path); print the card's name and
               power limit; TF32 off; build the four CUDA kernels from
@@ -79,7 +81,27 @@ printed:
               minibatch step on the card against the CPU in fp32 and
               float64 (see sgd_check), and the evaluator, deterministic, on
               128 envs for a cut episode of 25 control steps.
-  5. result   one JSON line of the kernels (launches of all three paths),
+  5. rsr      ``rsr.pipeline.policy_params_training(algorithm='ppo')`` on
+              ``AirbotCubePush`` with ``data_rsr_demo/`` at the RSR CLI's
+              width (512 envs, batch 128 x 32 minibatches, unroll 10, 8
+              updates, policy and value 32 x 4), bandwidth 2.0 (at the
+              demo's 0.1 the penalty is identically zero) and
+              rsr_loss_scale 1.0, for one training step (40960 env-steps):
+              the gate weight, each step's loss metrics with
+              sim2real_loss and rsr_distribution_distance, the rates as in
+              phase 4 and its checks (launches 2·S + 1, S + 1, S + 1, 0),
+              a nonzero penalty in every minibatch; K1, K2 and K3 on the
+              last training substep's inputs (B 512) at every E; the SGD
+              check, with the gradient of sim2real_loss alone also held to
+              float64 and nonzero.
+  6. go2      ``ppo.train`` with ``configs.ppo_config(
+              'Go2JoystickFlatTerrain')`` (8192 envs, batch 256 x 32,
+              unroll 20, 4 updates, 512-256-128 networks, the value network
+              on ``privileged_state``) for one training step (163840
+              env-steps): phase 4's rates and checks (launches S + 1 of K1
+              and K4), K1 and K4 on the last training substep's inputs, the
+              SGD check on dict observations, the evaluator as in phase 4.
+  7. result   one JSON line of the kernels (launches of all five paths),
               the card's name and power limit, and last the line
               {"ok": true, "device": {...}}.
 """
@@ -103,6 +125,8 @@ GO2_PARAMS = os.path.join(ROOT, 'logs', 'go2_joystick_50M_r5',
                           'final_params.pkl')
 GO2_ENV = 'Go2JoystickFlatTerrain'
 GO2_ENVS = 8192  # num_envs of the tuned joystick config
+# the joystick's asymmetric actor-critic: policy and value observation keys
+GO2_KEYS = {'obs_key': 'state', 'value_obs_key': 'privileged_state'}
 GO2_STEPS = 50  # control steps of the Go2 rollout, 5 substeps each
 # a trained policy does not fall within one second: at most this share of
 # the envs may terminate within GO2_STEPS control steps
@@ -112,7 +136,17 @@ DEV = 'cuda'  # every phase runs on the card
 REF_ENVS = 256  # envs of the batch run also on the CPU, fp32 and float64
 TRAIN_STEPS = 2  # PPO training steps of the tuned cube-push config
 EVAL_ENVS = 128  # the evaluator's envs after training (ppo.train's default)
-EVAL_STEPS = 25  # control steps of its episode, cut from 1200
+EVAL_STEPS = 25  # control steps of its episode, cut from 1200 (Go2: 1000)
+RSR_ENV = 'AirbotCubePush'  # the RSR CLI's default env (the rsr variant)
+RSR_DATA = os.path.join(ROOT, 'data_rsr_demo')
+# at the demo's default bandwidth 0.1 every KDE on the grid is one-hot and
+# the penalty is identically zero; at 2.0 its gate is open
+RSR_BANDWIDTH = 2.0
+RSR_STEPS = 1  # RSR training steps (40960 env-steps at 512 envs)
+# the RSR CLI's PPO width (policy_params_training's defaults at 512 envs)
+RSR_SIZES = dict(num_envs=512, batch_size=128, unroll_length=10,
+                 num_minibatches=32, num_updates_per_batch=8)
+GO2_TRAIN_STEPS = 1  # Go2 PPO training steps (163840 env-steps at 8192)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the full 700 W
 # limit): device-memory bytes/s and float32 FLOP/s outside the tensor cores.
@@ -706,13 +740,49 @@ def fmt_ratios(ratios):
       for (who, (it, ls)), r in ratios.items())
 
 
+def k4_row(torch, lk, tag, args, schedules):
+  """K4 on one recorded system at each of ``schedules`` under k4_ratios'
+  criteria, on the batch cut by 3 envs at the first schedule, its time at
+  each E and its row."""
+  err, ratios = k4_ratios(torch, lk, args, schedules)
+  cut = ragged(torch, args)
+  rerr, rratios = k4_ratios(torch, lk, cut, schedules[:1])
+  ragged_ok = kernel_ok(rratios)
+  log(f'K4 {tag} on a ragged batch (B {cut[6].shape[-1]}): max |kernel - '
+      f'plain| {rerr:.3e}; {fmt_ratios(rratios)} '
+      f'{"ok" if ragged_ok else "FAIL"}')
+  run = lambda: lk._newton_lanes_core(*args)
+  e_sweep(torch, lk, f'K4 {tag}', run, 'newton_generic_kernel')
+  sched = schedules[0]
+  return dict(
+      max_abs_err=err,
+      profiler_ms=profiler_ms(torch, run, 50, 'newton_generic_kernel'),
+      ok=kernel_ok(ratios) and ragged_ok,
+      ratios=fmt_ratios(ratios) + ('' if ragged_ok else ' (ragged FAIL)'),
+      work=k4_work(*args),
+      ms=time_ms(torch, run, 50),
+      plain_ms=time_ms(torch, lambda: lk.newton_generic_plain(*args), 5, 1),
+      library_ms=None,
+      note=f'nv {args[6].shape[0]}, R0 {args[6].shape[1]}, B '
+           f'{args[6].shape[2]}, schedule {sched[0]} x {sched[1]}; per '
+           'env, at each schedule: phi(xk) within 1e-5 (1 Newton step) or '
+           '1e-6 (6 steps) of the float64 solve; force and qfrc those of xk '
+           'and of the force to fp32 rounding (1024u, 64u of their sums)',
+  )
+
+
+def kernel_ok(ratios):
+  return max(max(r) for (who, _), r in ratios.items()
+             if who == 'kernel') <= 1.0
+
+
 def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
   """K4 on the Go2 rows of one substep (at the path's schedule and at
   6 x 6) and on the cube-push model's generic rows (6 x 6).  On the cube
   rows it also prints how far K4's objective is from K3's on the same
   states: both minimise the same φ."""
   sched = (go2_args[1], go2_args[2])
-  err, ratios = k4_ratios(torch, lk, go2_args, [sched, (6, 6)])
+  row = k4_row(torch, lk, 'Go2', go2_args, [sched, (6, 6)])
   cerr, cratios = k4_ratios(torch, lk, cube_args, [(6, 6)])
   log(f'K4 on the cube-push generic rows (nv {cube_args[6].shape[0]}, R0 '
       f'{cube_args[6].shape[1]}, B {cube_args[6].shape[2]}): max |kernel - '
@@ -726,24 +796,19 @@ def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
   log(f'K4 against K3 on the same cube-push states, 6 x 6: '
       f'|phi(x_K4) - phi(x_K3)| / phi(x0) per env max {gap.max().item():.3g} '
       f'median {gap.median().item():.3g}')
-  kernel_ok = lambda rs: max(
-      max(r) for (who, _), r in rs.items() if who == 'kernel') <= 1.0
   cube_ok = kernel_ok(cratios)
-  # the same on batches that are no multiple of the envs per block
-  for tag, a, scheds in (('Go2 rows', go2_args, [sched]),
-                         ('cube-push generic rows', cube_args, [(6, 6)])):
-    cut = ragged(torch, a)
-    rerr, rratios = k4_ratios(torch, lk, cut, scheds)
-    log(f'K4 on a ragged batch of the {tag} (B {cut[6].shape[-1]}): max '
-        f'|kernel - plain| {rerr:.3e}; {fmt_ratios(rratios)} '
-        f'{"ok" if kernel_ok(rratios) else "FAIL"}')
-    cube_ok = cube_ok and kernel_ok(rratios)
+  # the same on a batch that is no multiple of the envs per block
+  cut = ragged(torch, cube_args)
+  rerr, rratios = k4_ratios(torch, lk, cut, [(6, 6)])
+  log(f'K4 on a ragged batch of the cube-push generic rows (B '
+      f'{cut[6].shape[-1]}): max |kernel - plain| {rerr:.3e}; '
+      f'{fmt_ratios(rratios)} {"ok" if kernel_ok(rratios) else "FAIL"}')
+  cube_ok = cube_ok and kernel_ok(rratios)
   # the two assemblies pose one problem: the objectives must agree to 1e-4
   # of the start's in the median env (a handful of envs are ill-conditioned)
   cube_ok = cube_ok and gap.median().item() <= 1e-4
   run = lambda a: (lambda it, ls: lk._newton_lanes_core(a[0], it, ls, *a[3:]))
   name = 'newton_generic_kernel'
-  e_sweep(torch, lk, 'K4 Go2', lambda: lk._newton_lanes_core(*go2_args), name)
   e_sweep(torch, lk, 'K4 cube-push generic rows',
           lambda: lk._newton_lanes_core(*cube_args), name)
   schedule_split(torch, 'K4 Go2', run(go2_args), *sched, name)
@@ -756,24 +821,10 @@ def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
   log(f'K4 on the cube-push generic rows, 6 x 6: kernel_ms {cube_ms:.5f} '
       f'(profiler {cube_prof:.5f}) bound_ms {cube_bound[0]:.5f} '
       f'({cube_bound[1]})')
-  return dict(
-      max_abs_err=err,
-      profiler_ms=profiler_ms(torch, lambda: lk._newton_lanes_core(*go2_args),
-                              50, 'newton_generic_kernel'),
-      ok=kernel_ok(ratios) and cube_ok,
-      ratios=fmt_ratios(ratios) + (
-          '' if cube_ok else ' (cube rows or a ragged batch FAIL)'),
-      work=k4_work(*go2_args),
-      ms=time_ms(torch, lambda: lk._newton_lanes_core(*go2_args), 50),
-      plain_ms=time_ms(torch, lambda: lk.newton_generic_plain(*go2_args), 5,
-                       1),
-      library_ms=None,
-      note=f'nv {go2_args[6].shape[0]}, R0 {go2_args[6].shape[1]}, B '
-           f'{go2_args[6].shape[2]}, schedule {sched[0]} x {sched[1]}; per '
-           'env, at each schedule: phi(xk) within 1e-5 (1 Newton step) or '
-           '1e-6 (6 steps) of the float64 solve; force and qfrc those of xk '
-           'and of the force to fp32 rounding (1024u, 64u of their sums)',
-  )
+  row['ok'] = row['ok'] and cube_ok
+  if not cube_ok:
+    row['ratios'] += ' (cube rows or a ragged batch FAIL)'
+  return row
 
 
 def k3_ratios(torch, lk, args):
@@ -981,12 +1032,13 @@ def report(rows):
     raise SystemExit(f'kernel check failed: {failed}')
 
 
-def reference(torch, tag, make_envs, policy, obs_of, policy_obs=None,
-              steps=3):
+def reference(torch, tag, make_envs, policy, pol_cpu, obs_of,
+              policy_obs=None, steps=3):
   """REF_ENVS envs of a path's batch, the deterministic policy, ``steps``
   control steps from the same start: on the card, on the CPU (plain
   versions) and on the CPU in float64.  ``make_envs(device, dtype)`` gives
-  (env, start state); ``obs_of(state)`` the observation compared and
+  (env, start state); ``policy`` and ``pol_cpu`` are the policy on the card
+  and on the CPU; ``obs_of(state)`` the observation compared and
   ``policy_obs(state)`` the one the policy reads (the same by default).
 
   A few start states are chaotic in fp32: a change of qpos at the level of
@@ -996,13 +1048,10 @@ def reference(torch, tag, make_envs, policy, obs_of, policy_obs=None,
   every step to float64 as a batch: the median over envs of its obs gap to
   float64 must be within 10x the CPU fp32 path's + 1e-6.  Both gaps to
   float64 are printed after each step (max, median, envs over 1e-3)."""
-  import copy
-
   f64 = torch.float64
   env_g, s_g = make_envs(DEV, torch.float32)
   env_c, s_c = make_envs('cpu', torch.float32)
   env_d, s_d = make_envs('cpu', f64)
-  pol_cpu = copy.deepcopy(policy).cpu()
   policy_obs = policy_obs or obs_of
   ok = True
   for step in range(1, steps + 1):
@@ -1208,29 +1257,64 @@ def load_path(torch, port, name, params, n_envs, length, gen, **policy_kw):
   env0 = port.envs.load(name, device=DEV)
   env = port.wrappers.wrap_for_training(env0, episode_length=length,
                                         num_envs=n_envs)
+  return env0, env, load_policy(port, params, DEV, **policy_kw), env.reset(gen)
+
+
+def load_policy(port, params, device, **policy_kw):
+  """The trained policy of the pickle ``params``, deterministic, on
+  ``device``."""
   normalizer, params = port.networks.load_ppo_params(params)
-  policy = port.networks.make_policy(normalizer, params['policy'], device=DEV,
-                                     **policy_kw)
-  return env0, env, policy, env.reset(gen)
+  if not hasattr(port.networks, 'networks_from_numpy'):
+    # an older commit of the port (``--wrapper-times DIR``) serves the
+    # policy layers alone
+    params = params['policy']
+    policy_kw.pop('value_obs_key', None)
+  return port.networks.make_policy(normalizer, params, device=device,
+                                   **policy_kw)
 
 
 def recorded_sgd_step(torch, port, rec, dev, dtype):
   """(networks, run): the recorded minibatch's networks, normalizer,
-  minibatch and draw on ``dev`` in ``dtype``, and run() taking one
-  ``ppo.minibatch_step`` there with a fresh Adam (as the first minibatch
-  has) and returning its metrics."""
+  minibatch, draw and RSR penalty state on ``dev`` in ``dtype``, and run()
+  taking one ``ppo.minibatch_step`` there with a fresh Adam (as the first
+  minibatch has) and returning its metrics."""
   net = rec['factory']()
   net.load_state_dict(rec['params'])
   net.to(dev, dtype)
   opt = port.ppo.make_optimizer(net.parameters(), rec['lr'])
   cast = lambda x: x.to(dev, dtype if x.is_floating_point() else None)
+  loss_kwargs = dict(rec['loss_kwargs'])
+  if loss_kwargs.get('past_data') is not None:
+    loss_kwargs['past_data'] = loss_kwargs['past_data'].to(dev, dtype)
   args = (net, opt, port.rs.to(rec['normalizer'], dev, dtype),
           port.wrappers.tree_map(cast, rec['data']), cast(rec['noise']),
-          rec['loss_kwargs'], rec['max_grad_norm'])
+          loss_kwargs, rec['max_grad_norm'])
   return net, lambda: port.ppo.minibatch_step(*args)
 
 
-def profile_sgd(torch, rec, port, step_ms) -> None:
+def sim2real_grads(torch, port, rec, dev, dtype):
+  """The gradient of the RSR term alone (``rsr.compute_rsr_loss`` on the
+  current policy's mode action and the raw observations, as the PPO loss
+  takes it) with respect to the policy parameters, on the recorded
+  minibatch, on ``dev`` in ``dtype``: {name: gradient in float64 on the
+  CPU}."""
+  net, _ = recorded_sgd_step(torch, port, rec, dev, dtype)
+  cast = lambda x: x.to(dev, dtype)
+  data = port.wrappers.tree_map(cast, rec['data'])
+  past = rec['loss_kwargs']['past_data'].to(dev, dtype)
+  with torch.enable_grad():
+    logits = net.policy_logits(port.rs.normalize(
+        port.rs.to(rec['normalizer'], dev, dtype), data.observation))
+    loss, _ = port.rsr.compute_rsr_loss(
+        data.observation, net.distribution.mode(logits),
+        data.next_observation, past,
+        loss_scale=rec['loss_kwargs']['rsr_loss_scale'])
+    params = dict(net.policy.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+  return {k: g.to('cpu', torch.float64) for k, g in zip(params, grads)}
+
+
+def profile_sgd(torch, rec, port, step_ms, tag='train') -> None:
   """One minibatch step on the card under torch.profiler: device busy
   time, its share of ``step_ms`` (the measured ms per minibatch in
   training), device kernels launched."""
@@ -1248,81 +1332,90 @@ def profile_sgd(torch, rec, port, step_ms) -> None:
   kernels = [e for e in prof.key_averages()
              if e.device_type != torch.autograd.DeviceType.CPU]
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-  log(f'train SGD profile: 1 minibatch step, device busy {busy_ms:.3f} ms, '
+  log(f'{tag} SGD profile: 1 minibatch step, device busy {busy_ms:.3f} ms, '
       f'idle share {1 - busy_ms / step_ms:.4f} of the {step_ms:.3f} ms per '
       f'minibatch in training; under the profiler wall {wall_ms:.3f} ms; '
       f'{sum(e.count for e in kernels)} device kernels')
 
 
-def sgd_check(torch, port, rec) -> None:
+def sgd_check(torch, port, rec, tag='train') -> None:
   """The card against the CPU on one recorded minibatch of the first
   training step: from its parameters, normalizer, minibatch (the
-  permutation applied) and entropy draw, one ``ppo.minibatch_step`` (PPO
-  loss, backward, clip, Adam; a fresh Adam, as the first minibatch has)
-  on the card in fp32, on the CPU in fp32 and on the CPU in float64.  Per
-  loss metric |m − m64| <= 1e-5·|m64| + 1e-6, per parameter tensor
-  max |g − g64| <= 1e-4·max |g64| for the clipped gradient, for the card
-  and for the plain CPU fp32 run alike (a criterion the CPU run fails is
-  the wrong criterion)."""
+  permutation applied), entropy draw and RSR penalty state, one
+  ``ppo.minibatch_step`` (PPO loss, backward, clip, Adam; a fresh Adam, as
+  the first minibatch has) on the card in fp32, on the CPU in fp32 and on
+  the CPU in float64.  Per loss metric |m − m64| <= 1e-5·|m64| + 1e-6, per
+  parameter tensor max |g − g64| <= 1e-4·max |g64| for the clipped
+  gradient, for the card and for the plain CPU fp32 run alike (a criterion
+  the CPU run fails is the wrong criterion).  With the RSR penalty on, the
+  gradient of the penalty alone (sim2real_grads) is held to float64 the
+  same way, per policy parameter tensor, and must not be zero."""
   f64 = torch.float64
   out = {}
-  for tag, dev, dtype in (('card', DEV, torch.float32),
+  for who, dev, dtype in (('card', DEV, torch.float32),
                           ('cpu', 'cpu', torch.float32), ('f64', 'cpu', f64)):
     net, run = recorded_sgd_step(torch, port, rec, dev, dtype)
     metrics = run()
-    out[tag] = ({k: v.item() for k, v in metrics.items()},
+    out[who] = ({k: v.item() for k, v in metrics.items()},
                 {k: p.grad.to('cpu', f64) for k, p in net.named_parameters()},
                 {k: p.detach().to('cpu', f64)
                  for k, p in net.named_parameters()})
   m64, g64, p64 = out['f64']
-  ok = True
-  for tag in ('card', 'cpu'):
-    m, g, p = out[tag]
+  grad_ratio = lambda g, ref: max(
+      ((g[k] - ref[k]).abs().max() / (1e-4 * ref[k].abs().max() + 1e-30))
+      .item() for k in ref)
+  rsr = rec['loss_kwargs'].get('past_data') is not None
+  if rsr:
+    s64 = sim2real_grads(torch, port, rec, 'cpu', f64)
+    s_max = max(g.abs().max().item() for g in s64.values())
+  ok = not rsr or s_max > 0
+  for who, dev in (('card', DEV), ('cpu', 'cpu')):
+    m, g, p = out[who]
     loss_ratio = max(abs(m[k] - m64[k]) / (1e-5 * abs(m64[k]) + 1e-6)
                      for k in m)
-    grad_ratio = max(((g[k] - g64[k]).abs().max()
-                      / (1e-4 * g64[k].abs().max() + 1e-30)).item()
-                     for k in g)
     step = max((p[k] - p64[k]).abs().max().item() for k in p) / rec['lr']
-    good = loss_ratio <= 1.0 and grad_ratio <= 1.0
-    log(f'train SGD check, {tag} fp32 against CPU float64 on one minibatch '
+    ratios = [loss_ratio, grad_ratio(g, g64)]
+    extra = ''
+    if rsr:
+      ratios.append(grad_ratio(sim2real_grads(torch, port, rec, dev,
+                                              torch.float32), s64))
+      extra = (f', worst sim2real_loss gradient error/tolerance '
+               f'{ratios[-1]:.3g} (largest float64 entry {s_max:.6g})')
+    good = max(ratios) <= 1.0
+    log(f'{tag} SGD check, {who} fp32 against CPU float64 on one minibatch '
         f'({rec["data"].reward.shape[0]} sequences x '
         f'{rec["data"].reward.shape[1]} steps): worst loss error/tolerance '
-        f'{loss_ratio:.3g}, worst gradient error/tolerance {grad_ratio:.3g}; '
-        f'parameters after the Adam step differ by {step:.3g} x lr '
+        f'{ratios[0]:.3g}, worst gradient error/tolerance {ratios[1]:.3g}'
+        f'{extra}; parameters after the Adam step differ by {step:.3g} x lr '
         f'{"ok" if good else "FAIL"}')
     ok = ok and good
-  log('train SGD check, card - CPU fp32: max |loss metric| '
+  log(f'{tag} SGD check, card - CPU fp32: max |loss metric| '
       + f'{max(abs(out["card"][0][k] - out["cpu"][0][k]) for k in m64):.3e}')
   if not ok:
-    raise SystemExit('train: the card\'s SGD step disagrees with the CPU')
+    raise SystemExit(f'{tag}: the card\'s SGD step disagrees with the CPU'
+                     + (' or the penalty has no gradient' if rsr else ''))
 
 
-def train_phase(torch, port, lk, card):
-  """PPO on cube-push at the tuned width: ``ppo.train`` with
-  ``configs.ppo_config`` (1024 envs, batch 256 x 32 minibatches, unroll 10,
-  8 updates per batch) for TRAIN_STEPS training steps in one epoch, no
-  evaluation inside.  Each rollout and each minibatch step is timed by CUDA
-  events recorded at its boundaries, with no synchronise, so training/sps
-  is the trainer's own; the kernel wrappers keep the arguments of their
-  last calls.  Then K1, K2 and K3 on the recorded inputs of the last
-  training substep (B 1024, E of the training batch) against their plain
-  versions, as phase 2 holds them, the card-vs-CPU SGD check on the first
-  minibatch, and the evaluator, deterministic, on EVAL_ENVS envs for a cut
-  episode of EVAL_STEPS control steps.  Returns the kernels' launches in
-  training."""
-  import functools
+def run_training(torch, port, lk, train, make_net):
+  """Run ``train()`` (``ppo.train`` directly or through the RSR pipeline)
+  with each rollout and each minibatch step timed by CUDA events recorded
+  at its boundaries, with no synchronise, so training/sps is the trainer's
+  own; the first minibatch step's inputs recorded (``make_net()`` makes
+  networks of the trained shape), the observations the rollouts produced
+  counted, the kernels' launch counts zeroed just before and the kernel
+  wrappers keeping the arguments of their last 2 calls.  Returns a
+  namespace: out (train()'s result), launches, calls, unroll_ms, sgd_ms,
+  step_metrics (per minibatch), rec, seen (observations), progress (the
+  steps progress_fn was called at), metrics (the trainer's last)."""
+  import types
 
-  import_train(port)
-  cfg = port.configs.ppo_config(ENV)
-  nf = {k: tuple(v) for k, v in cfg.pop('network_factory').items()}
-  per_step = (cfg.batch_size * cfg.unroll_length * cfg.num_minibatches
-              * cfg.action_repeat)
-  cfg.update(num_timesteps=TRAIN_STEPS * per_step, num_evals=0)
-  factory = functools.partial(port.networks.make_ppo_networks, **nf)
-  env0 = port.envs.load(ENV, device=DEV)
-  rec, unroll_ev, sgd_ev, step_metrics, progress = {}, [], [], [], []
-  seen = [0]  # observations the rollouts produced
+  r = types.SimpleNamespace(rec={}, unroll_ev=[], sgd_ev=[], step_metrics=[],
+                            progress=[], metrics=None, seen=0)
+
+  def progress_fn(step, metrics):
+    r.progress.append(step)
+    r.metrics = metrics
+
   real_unroll, real_step = port.acting.generate_unroll, port.ppo.minibatch_step
 
   def timed(events, fn, *a, **k):
@@ -1334,101 +1427,121 @@ def train_phase(torch, port, lk, card):
     return out
 
   def unroll(*a, **k):
-    out = timed(unroll_ev, real_unroll, *a, **k)
-    seen[0] += out[1].reward.numel()
+    out = timed(r.unroll_ev, real_unroll, *a, **k)
+    r.seen += out[1].reward.numel()
     return out
 
   def step(networks, optimizer, normalizer, data, noise, loss_kwargs,
            max_grad_norm):
-    if not rec:
-      rec.update(params={k: v.detach().clone()
-                         for k, v in networks.state_dict().items()},
-                 normalizer=normalizer, data=data, noise=noise,
-                 loss_kwargs=loss_kwargs, max_grad_norm=max_grad_norm,
-                 lr=optimizer.param_groups[0]['lr'],
-                 factory=lambda: factory(env0.observation_size,
-                                         env0.action_size))
-    m = timed(sgd_ev, real_step, networks, optimizer, normalizer, data, noise,
-              loss_kwargs, max_grad_norm)
-    step_metrics.append(m)
+    if not r.rec:
+      r.rec.update(params={k: v.detach().clone()
+                           for k, v in networks.state_dict().items()},
+                   normalizer=normalizer, data=data, noise=noise,
+                   loss_kwargs=loss_kwargs, max_grad_norm=max_grad_norm,
+                   lr=optimizer.param_groups[0]['lr'], factory=make_net)
+    m = timed(r.sgd_ev, real_step, networks, optimizer, normalizer, data,
+              noise, loss_kwargs, max_grad_norm)
+    r.step_metrics.append(m)
     return m
 
   out = []
   port.acting.generate_unroll, port.ppo.minibatch_step = unroll, step
   zero_launches(lk)
   try:
-    calls = record_calls(lk, lambda: out.append(port.ppo.train(
-        environment=env0, network_factory=factory, seed=SEED, device=DEV,
-        progress_fn=lambda s, m: progress.append(s), **cfg)), keep=2)
+    r.calls = record_calls(lk, lambda: out.append(train(progress_fn)),
+                           keep=2)
   finally:
     port.acting.generate_unroll, port.ppo.minibatch_step = (real_unroll,
                                                             real_step)
-  launches = dict(lk.LAUNCHES)
-  make_policy, (norm, net), metrics = out[0]
+  r.launches = dict(lk.LAUNCHES)
+  r.out = out[0]
   torch.cuda.synchronize()
-  unroll_ms = [s.elapsed_time(e) for s, e in unroll_ev]
-  sgd_ms = [s.elapsed_time(e) for s, e in sgd_ev]
-  T, n_sub = cfg.unroll_length, env0.n_substeps
-  substeps = len(unroll_ms) * T * n_sub
-  n_mb = cfg.num_updates_per_batch * cfg.num_minibatches
-  log(f'train: {ENV}, {cfg.num_envs} envs, {TRAIN_STEPS} training steps of '
-      f'{per_step} env-steps ({len(unroll_ms)} unrolls of {T} control steps, '
-      f'{len(sgd_ms)} minibatch steps); training/sps '
+  r.unroll_ms = [a.elapsed_time(b) for a, b in r.unroll_ev]
+  r.sgd_ms = [a.elapsed_time(b) for a, b in r.sgd_ev]
+  return r
+
+
+def training_checks(torch, r, tag, steps, per_step, T, n_sub, n_mb, n_envs,
+                    norm, net, expect_of, card):
+  """Print a training run's rates and each step's mean loss metrics, and
+  fail on a non-finite metric, on env steps or a normalizer count other
+  than the rollouts gave, on parameters left unchanged, on launch counts
+  other than ``expect_of(substeps)``."""
+  metrics = r.metrics
+  substeps = len(r.unroll_ms) * T * n_sub
+  log(f'{tag}: {n_envs} envs, {steps} training step(s) of {per_step} '
+      f'env-steps ({len(r.unroll_ms)} unrolls of {T} control steps, '
+      f'{len(r.sgd_ms)} minibatch steps); training/sps '
       f'{metrics["training/sps"]:.1f} env-steps/s, training/walltime '
       f'{metrics["training/walltime"]:.3f} s; CUDA-event spans, no '
-      f'synchronise: rollout {sum(unroll_ms) / (len(unroll_ms) * T):.3f} ms '
-      f'per control step at B {cfg.num_envs} ({sum(unroll_ms) / substeps:.3f} '
-      f'ms per substep); SGD {sum(sgd_ms) / len(sgd_ms):.3f} ms per minibatch '
-      f'(median {sorted(sgd_ms)[len(sgd_ms) // 2]:.3f}); rollouts and SGD '
-      f'{(sum(unroll_ms) + sum(sgd_ms)) / 1e3:.3f} s; launches in '
-      f'training {launches}; card {card}')
+      f'synchronise: rollout '
+      f'{sum(r.unroll_ms) / (len(r.unroll_ms) * T):.3f} ms per control step '
+      f'at B {n_envs} ({sum(r.unroll_ms) / substeps:.3f} ms per substep); '
+      f'SGD {sum(r.sgd_ms) / len(r.sgd_ms):.3f} ms per minibatch (median '
+      f'{sorted(r.sgd_ms)[len(r.sgd_ms) // 2]:.3f}); rollouts and SGD '
+      f'{(sum(r.unroll_ms) + sum(r.sgd_ms)) / 1e3:.3f} s; launches in '
+      f'training {r.launches}; card {card}')
   failed = []
-  for i in range(TRAIN_STEPS):
-    ms = step_metrics[i * n_mb:(i + 1) * n_mb]
+  for i in range(steps):
+    ms = r.step_metrics[i * n_mb:(i + 1) * n_mb]
     mean = {k: torch.stack([m[k] for m in ms]).mean().item() for k in ms[0]}
-    log(f'train step {i + 1}: ' + ', '.join(f'{k} {v:.6g}'
+    log(f'{tag} step {i + 1}: ' + ', '.join(f'{k} {v:.6g}'
                                             for k, v in mean.items()))
     failed += [f'step {i + 1} {k}' for k, v in mean.items()
                if not math.isfinite(v)]
   failed += [k for k, v in metrics.items() if not math.isfinite(v)]
-  if progress != [TRAIN_STEPS * per_step]:
-    failed.append(f'env steps {progress} != {TRAIN_STEPS * per_step}')
-  if float(norm.count) != seen[0]:
-    failed.append(f'normalizer count {float(norm.count)} != {seen[0]} '
+  if r.progress != [steps * per_step]:
+    failed.append(f'env steps {r.progress} != {steps * per_step}')
+  if float(norm.count) != r.seen:
+    failed.append(f'normalizer count {float(norm.count)} != {r.seen} '
                   'observations')
   same = [k for k, v in net.state_dict().items()
-          if torch.equal(v, rec['params'][k])]
+          if torch.equal(v, r.rec['params'][k])]
   if same:
     failed.append(f'parameters unchanged by training: {same}')
-  # per substep K1 twice, K2 and K3 once; the reset's forward once each
-  expect = {'spd_solve_lanes': 2 * substeps + 1,
-            'contact_select_lanes': substeps + 1,
-            'newton_lanes_pyr_t': substeps + 1, '_newton_lanes_core': 0}
-  if launches != expect:
-    failed.append(f'launches in training {launches} != {expect}')
+  if r.launches != expect_of(substeps):
+    failed.append(f'launches in training {r.launches} != '
+                  f'{expect_of(substeps)}')
   if failed:
-    raise SystemExit(f'train phase failed: {failed}')
+    raise SystemExit(f'{tag} phase failed: {failed}')
+  return substeps
 
-  # K1, K2 and K3 on the inputs of the last training substep: the batch of
-  # training, and so the envs per block it makes the wrappers choose
-  B, tag = cfg.num_envs, f'training, B {cfg.num_envs}'
+
+# per substep K1 twice, K2 and K3 once; the reset's forward once each
+CUBE_TRAIN_LAUNCHES = lambda S: {
+    'spd_solve_lanes': 2 * S + 1, 'contact_select_lanes': S + 1,
+    'newton_lanes_pyr_t': S + 1, '_newton_lanes_core': 0}
+# per substep K1 and K4 once; the reset's forward once each
+GO2_TRAIN_LAUNCHES = lambda S: {
+    'spd_solve_lanes': S + 1, 'contact_select_lanes': 0,
+    'newton_lanes_pyr_t': 0, '_newton_lanes_core': S + 1}
+
+
+def cube_kernel_rows(torch, lk, calls, B, tag):
+  """K1, K2 and K3 on the recorded inputs of the last training substep
+  (the batch of training, and so the envs per block it makes the wrappers
+  choose), under phase 2's checks; fails if one fails."""
   if calls['spd_solve_lanes'][-1][1].shape[-1] != B:
-    raise SystemExit('train: the recorded kernel inputs are not of training')
+    raise SystemExit(f'{tag}: the recorded kernel inputs are not of '
+                     'training')
   k3_args = calls['newton_lanes_pyr_t'][-1]
+  label = f'{tag}, B {B}'
   rows = {
-      f'K1 spd_solve_lanes ({tag})': k1_row(torch, lk, tag,
-                                            calls['spd_solve_lanes'][-2:]),
-      f'K2 contact_select_lanes ({tag})': k2_row(
-          torch, lk, calls['contact_select_lanes'][-1], tag='training'),
-      f'K3 newton_lanes_pyr_t ({tag})': k3_row(torch, lk, tag, k3_args),
+      f'K1 spd_solve_lanes ({label})': k1_row(torch, lk, label,
+                                              calls['spd_solve_lanes'][-2:]),
+      f'K2 contact_select_lanes ({label})': k2_row(
+          torch, lk, calls['contact_select_lanes'][-1], tag=tag),
+      f'K3 newton_lanes_pyr_t ({label})': k3_row(torch, lk, label, k3_args),
   }
-  e_sweep(torch, lk, f'K3 {tag}', lambda: lk.newton_lanes_pyr_t(*k3_args),
+  e_sweep(torch, lk, f'K3 {label}', lambda: lk.newton_lanes_pyr_t(*k3_args),
           'newton_pyr_kernel')
-  del calls, k3_args
   report(rows)
 
-  sgd_check(torch, port, rec)
-  profile_sgd(torch, rec, port, sorted(sgd_ms)[len(sgd_ms) // 2])
+
+def run_eval(torch, port, env0, make_policy, params, episode_length, tag):
+  """The evaluator, deterministic, on EVAL_ENVS envs for a cut episode of
+  EVAL_STEPS control steps; fails on a non-finite episode reward."""
+  import functools
 
   eval_env = port.wrappers.EvalWrapper(port.wrappers.wrap_for_training(
       env0, episode_length=EVAL_STEPS, num_envs=EVAL_ENVS))
@@ -1436,16 +1549,169 @@ def train_phase(torch, port, lk, card):
       eval_env, functools.partial(make_policy, deterministic=True),
       num_eval_envs=EVAL_ENVS, episode_length=EVAL_STEPS, action_repeat=1,
       generator=torch.Generator(device=DEV).manual_seed(SEED))
-  ev = evaluator.run_evaluation((norm, net), {})
-  log(f'train eval: {EVAL_ENVS} envs, deterministic, episode cut to '
-      f'{EVAL_STEPS} control steps (reduced from {cfg.episode_length}): '
+  ev = evaluator.run_evaluation(params, {})
+  log(f'{tag} eval: {EVAL_ENVS} envs, deterministic, episode cut to '
+      f'{EVAL_STEPS} control steps (reduced from {episode_length}): '
       f'eval/episode_reward {ev["eval/episode_reward"]:.4f} (std '
       f'{ev["eval/episode_reward_std"]:.4f}), avg episode length '
       f'{ev["eval/avg_episode_length"]:.2f}, nan episodes '
       f'{ev["eval/nan_episodes"]}, {ev["eval/epoch_eval_time"]:.3f} s')
   if not math.isfinite(ev['eval/episode_reward']) or ev['eval/nan_episodes']:
-    raise SystemExit('train eval: a non-finite episode reward')
-  return launches
+    raise SystemExit(f'{tag} eval: a non-finite episode reward')
+
+
+def tuned_config(port, env_name, steps):
+  """(config, network factory keywords, env-steps per training step) of
+  the tuned PPO config of ``env_name`` cut to ``steps`` training steps in
+  one epoch with no evaluation inside."""
+  cfg = port.configs.ppo_config(env_name)
+  nf = {k: tuple(v) if isinstance(v, list) else v
+        for k, v in cfg.pop('network_factory').items()}
+  per_step = (cfg.batch_size * cfg.unroll_length * cfg.num_minibatches
+              * cfg.action_repeat)
+  cfg.update(num_timesteps=steps * per_step, num_evals=0)
+  return cfg, nf, per_step
+
+
+def train_phase(torch, port, lk, card):
+  """PPO on cube-push at the tuned width: ``ppo.train`` with
+  ``configs.ppo_config`` (1024 envs, batch 256 x 32 minibatches, unroll 10,
+  8 updates per batch) for TRAIN_STEPS training steps in one epoch, no
+  evaluation inside (run_training).  Then K1, K2 and K3 on the recorded
+  inputs of the last training substep (B 1024, E of the training batch)
+  against their plain versions, as phase 2 holds them, the card-vs-CPU SGD
+  check on the first minibatch, and the evaluator.  Returns the kernels'
+  launches in training."""
+  import functools
+
+  import_train(port)
+  cfg, nf, per_step = tuned_config(port, ENV, TRAIN_STEPS)
+  factory = functools.partial(port.networks.make_ppo_networks, **nf)
+  env0 = port.envs.load(ENV, device=DEV)
+  r = run_training(
+      torch, port, lk,
+      lambda progress_fn: port.ppo.train(
+          environment=env0, network_factory=factory, seed=SEED, device=DEV,
+          progress_fn=progress_fn, **cfg),
+      lambda: factory(env0.observation_size, env0.action_size))
+  make_policy, (norm, net), _ = r.out
+  n_mb = cfg.num_updates_per_batch * cfg.num_minibatches
+  training_checks(torch, r, 'train', TRAIN_STEPS, per_step,
+                  cfg.unroll_length, env0.n_substeps, n_mb, cfg.num_envs,
+                  norm, net, CUBE_TRAIN_LAUNCHES, card)
+  cube_kernel_rows(torch, lk, r.calls, cfg.num_envs, 'training')
+  del r.calls
+  sgd_check(torch, port, r.rec)
+  profile_sgd(torch, r.rec, port, sorted(r.sgd_ms)[len(r.sgd_ms) // 2])
+  run_eval(torch, port, env0, make_policy, (norm, net), cfg.episode_length,
+           'train')
+  return r.launches
+
+
+def rsr_phase(torch, port, lk, card):
+  """RSR policy training on cube-push: ``rsr.pipeline.
+  policy_params_training(algorithm='ppo')`` on AirbotCubePush with the demo
+  data (``load_rsr_datasets``), at the RSR CLI's width (512 envs, batch 128
+  x 32 minibatches, unroll 10, 8 updates, policy and value 32 x 4), at
+  bandwidth RSR_BANDWIDTH (where the penalty's gate is open; at the demo's
+  default 0.1 the term is identically zero) and rsr_loss_scale 1.0, for
+  one training step with no evaluation inside.  Checks as phase 4's, with
+  K1, K2 and K3 at B 512, the SGD check with the penalty's gradient alone
+  held to float64 and nonzero, and a nonzero penalty in training.  Returns
+  the kernels' launches in training."""
+  import functools
+
+  arrays = port.rsr_datasets.load_rsr_datasets(RSR_DATA, 50, device=DEV)
+  env0 = port.envs.load(RSR_ENV, device=DEV)
+  factory = functools.partial(port.networks.make_ppo_networks,
+                              policy_hidden_layer_sizes=(32,) * 4,
+                              value_hidden_layer_sizes=(32,) * 4)
+  sizes = RSR_SIZES
+  per_step = sizes['batch_size'] * sizes['unroll_length'] * sizes[
+      'num_minibatches']
+  r = run_training(
+      torch, port, lk,
+      lambda progress_fn: port.rsr_pipeline.policy_params_training(
+          env0, algorithm='ppo', past_states=arrays[0],
+          past_actions=arrays[1], past_next_states_real=arrays[2],
+          past_next_states_sim=arrays[3], current_next_states_sim=arrays[4],
+          bandwidth=RSR_BANDWIDTH, rsr_loss_scale=1.0,
+          num_timesteps=RSR_STEPS * per_step, num_evals=0,
+          network_factory=factory, progress_fn=progress_fn, seed=SEED,
+          device=DEV, **sizes),
+      lambda: factory(env0.observation_size, env0.action_size))
+  make_policy, (norm, net) = r.out
+  past = r.rec['loss_kwargs']['past_data']
+  log(f'rsr: data {RSR_DATA}: {arrays[0].shape[0]} transitions, width '
+      f'{past.width}; bandwidth {RSR_BANDWIDTH}, {past.grid.shape[0]} grid '
+      f'points of the port\'s grid (seed {SEED}): gate weight '
+      f'KL(real || previous sim) {past.weight.item():.6g}')
+  mb = [m['sim2real_loss'].item() for m in r.step_metrics]
+  log(f'rsr: sim2real_loss first / last minibatch {mb[0]:.6g} / {mb[-1]:.6g}')
+  n_mb = sizes['num_updates_per_batch'] * sizes['num_minibatches']
+  substeps = training_checks(
+      torch, r, 'rsr', RSR_STEPS, per_step, sizes['unroll_length'],
+      env0.n_substeps, n_mb, sizes['num_envs'], norm, net,
+      CUBE_TRAIN_LAUNCHES, card)
+  if not min(mb) > 0:
+    raise SystemExit('rsr: the penalty is zero in a minibatch: the gate is '
+                     'closed')
+  k3 = r.calls['newton_lanes_pyr_t'][-1]
+  k2 = r.calls['contact_select_lanes'][-1]
+  rows, C, naxes = k3[6].shape[1], k3[12].shape[0], k3[13]
+  log(f'rsr: {substeps} substeps of {env0.model.nv} dofs; the kernels saw '
+      f'{k2[2].shape[0]} contact slots -> {k2[1]} selected, nefc '
+      f'{rows + 2 * naxes * C} ({rows} structured rows, {C} contacts x '
+      f'{naxes} axes x 2)')
+  del k3, k2
+  cube_kernel_rows(torch, lk, r.calls, sizes['num_envs'], 'rsr training')
+  del r.calls
+  sgd_check(torch, port, r.rec, tag='rsr')
+  return r.launches
+
+
+def go2_train_phase(torch, port, lk, card):
+  """PPO on the Go2 joystick at the tuned table: ``ppo.train`` with
+  ``configs.ppo_config('Go2JoystickFlatTerrain')`` (8192 envs, batch 256 x
+  32 minibatches, unroll 20, 4 updates, 512-256-128 networks, the value
+  network on ``privileged_state``) for GO2_TRAIN_STEPS training step(s) in
+  one epoch, no evaluation inside (run_training).  Then K1 and K4 on the
+  recorded inputs of the last training substep against their plain
+  versions, the card-vs-CPU SGD check on the first minibatch (dict
+  observations) and the evaluator.  Returns the kernels' launches in
+  training."""
+  import functools
+
+  cfg, nf, per_step = tuned_config(port, GO2_ENV, GO2_TRAIN_STEPS)
+  factory = functools.partial(port.networks.make_ppo_networks, **nf)
+  env0 = port.envs.load(GO2_ENV, device=DEV)
+  r = run_training(
+      torch, port, lk,
+      lambda progress_fn: port.ppo.train(
+          environment=env0, network_factory=factory, seed=SEED, device=DEV,
+          progress_fn=progress_fn, **cfg),
+      lambda: factory(env0.observation_size, env0.action_size))
+  make_policy, (norm, net), _ = r.out
+  n_mb = cfg.num_updates_per_batch * cfg.num_minibatches
+  training_checks(torch, r, 'go2 train', GO2_TRAIN_STEPS, per_step,
+                  cfg.unroll_length, env0.n_substeps, n_mb, cfg.num_envs,
+                  norm, net, GO2_TRAIN_LAUNCHES, card)
+  B, tag = cfg.num_envs, f'Go2 training, B {cfg.num_envs}'
+  k4_args = r.calls['_newton_lanes_core'][-1]
+  if k4_args[6].shape[-1] != B:
+    raise SystemExit('go2 train: the recorded kernel inputs are not of '
+                     'training')
+  report({f'K1 spd_solve_lanes ({tag})': k1_row(
+              torch, lk, tag, r.calls['spd_solve_lanes'][-2:]),
+          f'K4 _newton_lanes_core ({tag})': k4_row(
+              torch, lk, tag, k4_args, [(k4_args[1], k4_args[2])])})
+  del r.calls, k4_args
+  sgd_check(torch, port, r.rec, tag='go2 train')
+  profile_sgd(torch, r.rec, port, sorted(r.sgd_ms)[len(r.sgd_ms) // 2],
+              tag='go2 train')
+  run_eval(torch, port, env0, make_policy, (norm, net), cfg.episode_length,
+           'go2 train')
+  return r.launches
 
 
 def wrapper_times(torch, port, card) -> None:
@@ -1480,7 +1746,7 @@ def wrapper_times(torch, port, card) -> None:
   for tag, path in (
       ('cube-push', (ENV, PARAMS, ENVS, 1200)),
       ('Go2', (GO2_ENV, GO2_PARAMS, GO2_ENVS, 1000))):
-    kw = {'obs_key': 'state'} if tag == 'Go2' else {}
+    kw = GO2_KEYS if tag == 'Go2' else {}
     _, env, policy, state = load_path(torch, port, *path, gen, **kw)
     calls = record_calls(lk, lambda: env.step(state, policy(state.obs)))
     At, bt = calls['spd_solve_lanes'][-1][:2]
@@ -1518,10 +1784,12 @@ def import_port(root=None):
 
 
 def import_train(port):
-  """Add the trainer's modules to ``port`` (phase 4)."""
+  """Add the trainer's and RSR's modules to ``port`` (phases 4 to 6)."""
   mod = _port_module
   port.ppo, port.acting = mod('train.ppo'), mod('train.acting')
   port.configs, port.rs = mod('train.configs'), mod('train.running_statistics')
+  port.rsr, port.rsr_pipeline = mod('rsr'), mod('rsr.pipeline')
+  port.rsr_datasets = mod('rsr.datasets')
 
 
 def main() -> int:
@@ -1590,7 +1858,7 @@ def main() -> int:
   del calls
 
   g_env0, g_env, g_policy, g_state = load_path(
-      torch, port, GO2_ENV, GO2_PARAMS, GO2_ENVS, 1000, gen, obs_key='state')
+      torch, port, GO2_ENV, GO2_PARAMS, GO2_ENVS, 1000, gen, **GO2_KEYS)
   calls = record_calls(lk, lambda: g_env.step(g_state, g_policy(g_state.obs)))
   n_sub = g_env0.n_substeps
   if (len(calls['_newton_lanes_core']), len(calls['spd_solve_lanes'])) != (
@@ -1615,7 +1883,8 @@ def main() -> int:
     return e, e.reset_to(*(x[:n].to(device, dtype)
                            for x in (d0.qpos, d0.qvel, d0.ctrl)))
 
-  reference(torch, 'cube-push', cube_envs, policy, lambda s: s.obs)
+  reference(torch, 'cube-push', cube_envs, policy,
+            load_policy(port, PARAMS, 'cpu'), lambda s: s.obs)
   state, launches, step_ms = rollout_cube(torch, lk, env0, env, policy,
                                           state, card)
   profile_control_step(torch, 'cube', env, policy, state, step_ms)
@@ -1629,6 +1898,7 @@ def main() -> int:
     return e, e.reset_to({k: v.to(device) for k, v in g_init.items()}, g)
 
   reference(torch, 'Go2', go2_envs, g_policy,
+            load_policy(port, GO2_PARAMS, 'cpu', **GO2_KEYS),
             lambda s: s.obs['privileged_state'], lambda s: s.obs['state'])
   g_state, g_launches, g_step_ms = rollout_go2(torch, lk, g_env0, g_env,
                                                g_policy, g_state, card)
@@ -1638,12 +1908,19 @@ def main() -> int:
   # -- 4. training
   t_launches = train_phase(torch, port, lk, card)
 
-  # -- 5. result
+  # -- 5. RSR policy training on cube-push
+  r_launches = rsr_phase(torch, port, lk, card)
+
+  # -- 6. PPO on the Go2 joystick
+  g_t_launches = go2_train_phase(torch, port, lk, card)
+
+  # -- 7. result
   log('kernels: ' + ', '.join(f'{v[0]} {k}' for k, v in KERNELS.items()))
   out = []
   for name, (short, src, tpu) in KERNELS.items():
     r = rows[name]
-    count = launches[name] + g_launches[name] + t_launches[name]
+    count = sum(phase[name] for phase in (launches, g_launches, t_launches,
+                                          r_launches, g_t_launches))
     if count <= 0:
       raise SystemExit(f'{name} was launched by no path')
     # ms and library_ms are device times from torch.profiler (the kernel by

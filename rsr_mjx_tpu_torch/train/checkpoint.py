@@ -7,8 +7,10 @@ CPU tensors (``torch.save``; ``restore`` reads it with
 ``weights_only=True``).  ``latest_checkpoint`` finds the newest
 step-numbered directory as the JAX function does.  ``save_params`` writes
 ``final_params.pkl`` in the JAX trainer's layout, numpy arrays in
-(RunningStatisticsState, {'policy': [...], 'value': [...]}), which
-``networks.load_ppo_params`` reads back.
+(RunningStatisticsState, {'policy': [...], 'value': [...]}), with the
+normalizer under the JAX package's class path, so that the JAX
+``sac.load_params`` reads it where torch is not installed;
+``networks.load_ppo_params`` reads it back.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ from rsr_mjx_tpu_torch.train import running_statistics
 from rsr_mjx_tpu_torch.train.running_statistics import RunningStatisticsState
 
 _FILE = 'params.pt'
+# where the JAX package keeps the normalizer state class
+_JAX_STATS_CLASS = ('rsr_mjx_tpu.train.running_statistics',
+                    'RunningStatisticsState')
 
 
 def save(path: str, params) -> None:
@@ -58,8 +63,23 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
   return os.path.join(ckpt_dir, max(candidates, key=int))
 
 
+class _JaxPathPickler(pickle._Pickler):
+  """Names the normalizer class by the JAX package's path, which the JAX
+  package imports without torch (the C pickler would check that the path
+  imports to this class, so this is the pure-Python one)."""
+
+  def save_global(self, obj, name=None):
+    if obj is not RunningStatisticsState:
+      return super().save_global(obj, name)
+    for part in _JAX_STATS_CLASS:  # protocol 4, as save_params writes
+      self.save(part)
+    self.write(pickle.STACK_GLOBAL)
+    self.memoize(obj)
+
+
 def save_params(path: str, params) -> None:
   """Pickle ``params`` = (normalizer, PPONetworks) as numpy in the JAX
   trainer's ``final_params.pkl`` layout."""
   with open(path, 'wb') as f:
-    pickle.dump(ppo_networks.ppo_params_to_numpy(*params), f)
+    _JaxPathPickler(f, protocol=4).dump(
+        ppo_networks.ppo_params_to_numpy(*params))

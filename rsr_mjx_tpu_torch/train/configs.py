@@ -1,19 +1,31 @@
 """Tuned PPO configurations.
 
 Counterpart of ``ppo_config`` in ``rsr_mjx_tpu/train/configs.py``, as a
-plain ``Config``.  Only the Airbot table is ported; the Go2 tables come
-with the Go2 training slice and raise until then.
+plain ``Config``: the Airbot table and the Go2 tables (a generic table
+with overrides for the joystick, handstand / footstand and getup tasks).
+A Go2 table holds for every Go2 task of the JAX package; ``envs.load``
+raises for a task the port has not ported yet.
 """
 
 from __future__ import annotations
 
 from rsr_mjx_tpu_torch.envs.config import Config
 
+# the default episode_length of each Go2 task's env config (the JAX
+# package's envs/go2/joystick.py, getup.py, handstand.py)
+_GO2_EPISODE_LENGTH = {
+    'Go2JoystickFlatTerrain': 1000,
+    'Go2JoystickRoughTerrain': 1000,
+    'Go2Getup': 300,
+    'Go2Handstand': 500,
+    'Go2Footstand': 500,
+}
+
 
 def ppo_config(env_name: str) -> Config:
-  """The tuned PPO config of ``env_name`` (the JAX Airbot table,
-  airbot_training/train.py:26-55 of the reference, with max_grad_norm 1.0
-  as the JAX package sets it)."""
+  """The tuned PPO config of ``env_name``: for Airbot the reference's
+  airbot_training/train.py:26-55 with max_grad_norm 1.0 as the JAX package
+  sets it, for Go2 its locomotion_params.py:4-123."""
   if env_name.startswith('Airbot'):
     return Config(
         num_timesteps=15_000_000,
@@ -36,5 +48,47 @@ def ppo_config(env_name: str) -> Config:
             value_hidden_layer_sizes=(256, 256, 256, 256, 256),
         ),
     )
-  raise ValueError(f'no tuned PPO config for {env_name!r} in the port yet: '
-                   'the Go2 tables come with the Go2 training slice')
+  if env_name not in _GO2_EPISODE_LENGTH:
+    raise ValueError(f'Unsupported env: {env_name}')
+
+  rl_config = Config(
+      num_timesteps=100_000_000,
+      num_evals=10,
+      reward_scaling=1.0,
+      episode_length=_GO2_EPISODE_LENGTH[env_name],
+      normalize_observations=True,
+      action_repeat=1,
+      unroll_length=20,
+      num_minibatches=32,
+      num_updates_per_batch=4,
+      discounting=0.97,
+      learning_rate=3e-4,
+      entropy_cost=1e-2,
+      num_envs=8192,
+      batch_size=256,
+      max_grad_norm=1.0,
+      network_factory=Config(
+          policy_hidden_layer_sizes=(128, 128, 128, 128),
+          value_hidden_layer_sizes=(256, 256, 256, 256, 256),
+          policy_obs_key='state',
+          value_obs_key='state',
+      ),
+  )
+  # each Go2 task overrides the generic networks with an asymmetric
+  # actor-critic: the value network on the privileged state
+  asymmetric = Config(
+      policy_hidden_layer_sizes=(512, 256, 128),
+      value_hidden_layer_sizes=(512, 256, 128),
+      policy_obs_key='state',
+      value_obs_key='privileged_state',
+  )
+  if env_name in ('Go2JoystickFlatTerrain', 'Go2JoystickRoughTerrain'):
+    rl_config.update(num_timesteps=200_000_000, num_evals=10,
+                     network_factory=asymmetric)
+  elif env_name in ('Go2Handstand', 'Go2Footstand'):
+    rl_config.update(num_timesteps=100_000_000, num_evals=5,
+                     network_factory=asymmetric)
+  elif env_name == 'Go2Getup':
+    rl_config.update(num_timesteps=50_000_000, num_evals=5,
+                     network_factory=asymmetric)
+  return rl_config

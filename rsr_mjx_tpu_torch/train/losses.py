@@ -1,11 +1,9 @@
-"""PPO loss, with the place of the RSR penalty.
+"""PPO loss with the RSR penalty.
 
 Counterpart of ``rsr_mjx_tpu/train/losses.py``: GAE by a reverse loop over
 time with truncation masking, clipped surrogate + 0.25·value error +
-entropy bonus, and the RSR term.  The RSR penalty itself comes with
-ROADMAP item 3: until then ``past_data=None`` (or ``rsr_loss_scale == 0``)
-gives the zeros the JAX ``compute_rsr_loss`` gives there, and any other
-``past_data`` raises.
+entropy bonus, and the RSR term (``rsr.compute_rsr_loss``) on the current
+policy's mode action and the raw, un-normalised observations.
 """
 
 from __future__ import annotations
@@ -14,6 +12,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from rsr_mjx_tpu_torch import rsr
 from rsr_mjx_tpu_torch.envs.wrappers import tree_map
 from rsr_mjx_tpu_torch.train import running_statistics
 from rsr_mjx_tpu_torch.train.networks import PPONetworks
@@ -51,16 +50,6 @@ def compute_gae(truncation, termination, rewards, values, bootstrap_value,
     advantages = (rewards + discount * (1 - termination) * vs_t_plus_1
                   - values) * truncation_mask
   return vs, advantages
-
-
-def compute_rsr_loss(past_data, rsr_loss_scale: float, like: torch.Tensor):
-  """(scaled loss, distribution distance): zeros without past data, as
-  ``rsr_mjx_tpu/rsr/loss.py:171-173``."""
-  if past_data is None or rsr_loss_scale == 0.0:
-    zero = torch.zeros((), dtype=like.dtype, device=like.device)
-    return zero, zero
-  raise NotImplementedError(
-      'the RSR penalty (past_data) is not ported yet: ROADMAP item 3')
 
 
 def compute_ppo_loss(
@@ -120,8 +109,17 @@ def compute_ppo_loss(
   entropy_loss = entropy_cost * -entropy
 
   task_loss = policy_loss + v_loss + entropy_loss
-  sim2real_loss, distribution_distance = compute_rsr_loss(
-      past_data, rsr_loss_scale, task_loss)
+
+  # the RSR term on the current policy's mode action and the raw
+  # observations (``obs`` above is normalised); with dict observations the
+  # transition vector uses the policy's obs key
+  rsr_obs, rsr_nobs = data.observation, data.next_observation
+  if isinstance(rsr_obs, dict):
+    rsr_obs = rsr_obs[networks.policy_obs_key]
+    rsr_nobs = rsr_nobs[networks.policy_obs_key]
+  sim2real_loss, distribution_distance = rsr.compute_rsr_loss(
+      rsr_obs, dist.mode(policy_logits), rsr_nobs, past_data,
+      loss_scale=rsr_loss_scale)
 
   total_loss = task_loss + sim2real_loss
   metrics = {

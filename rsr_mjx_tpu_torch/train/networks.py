@@ -10,11 +10,11 @@ dict observations.  Every function that draws takes its standard-normal
 draw as a tensor (``standard_normal`` draws one from a generator), so a
 caller can hand over another source's draws.
 
-``PPOPolicy`` is the deterministic policy alone, for serving.
 ``load_ppo_params`` reads a PPO ``final_params.pkl`` of either package;
-``params_from_numpy`` carries its policy into a ``PPOPolicy`` and
 ``ppo_params_from_numpy`` / ``ppo_params_to_numpy`` carry both networks
-and the whole normalizer state into and out of ``PPONetworks``.
+and the whole normalizer state into and out of ``PPONetworks``, and
+``make_policy`` serves such parameters as the deterministic policy that
+``make_inference_fn`` gives.
 """
 
 from __future__ import annotations
@@ -54,32 +54,6 @@ class MLP(nn.Module):
       if i < n - 1 or self.activate_final:
         x = self.activation(x)
     return x
-
-
-def tanh_normal_mode(logits: torch.Tensor) -> torch.Tensor:
-  """Mode of the tanh-normal whose parameters are [loc | raw scale]."""
-  loc, _ = torch.chunk(logits, 2, dim=-1)
-  return torch.tanh(loc)
-
-
-class PPOPolicy(nn.Module):
-  """Deterministic PPO policy: normalize the observation, run the policy
-  MLP (swish; jax.nn.swish is x·sigmoid(x), torch's silu), take the mode.
-  Of a dict observation it reads the entry ``obs_key``."""
-
-  def __init__(self, obs_size: int, action_size: int,
-               hidden_layer_sizes: Sequence[int] = (32, 32, 32, 32),
-               obs_key: str = 'state'):
-    super().__init__()
-    self.obs_key = obs_key
-    self.register_buffer('obs_mean', torch.zeros(obs_size))
-    self.register_buffer('obs_std', torch.ones(obs_size))
-    self.mlp = MLP(obs_size, tuple(hidden_layer_sizes) + (2 * action_size,))
-
-  def forward(self, obs) -> torch.Tensor:
-    if isinstance(obs, dict):
-      obs = obs[self.obs_key]
-    return tanh_normal_mode(self.mlp((obs - self.obs_mean) / self.obs_std))
 
 
 # ---------------------------------------------------------------------------
@@ -320,29 +294,45 @@ def load_ppo_params(path: str):
   return normalizer, net
 
 
-def params_from_numpy(normalizer: RunningStatisticsState, policy,
-                      obs_key: str = 'state') -> dict:
-  """``PPOPolicy`` state dict from the JAX parameters: ``policy`` is the
-  list of {'w': (in, out), 'b': (out,)} layers, the normalizer gives the
-  observation mean and std (for a dict observation, dicts of which the
-  policy reads entry ``obs_key``).  nn.Linear keeps its weight as
-  (out, in)."""
-  f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-  pick = lambda a: a[obs_key] if isinstance(a, dict) else a
-  sd = {'obs_mean': f32(pick(normalizer.mean)),
-        'obs_std': f32(pick(normalizer.std))}
-  for i, layer in enumerate(policy):
-    sd[f'mlp.layers.{i}.weight'] = f32(layer['w']).T.contiguous()
-    sd[f'mlp.layers.{i}.bias'] = f32(layer['b'])
-  return sd
+def networks_from_numpy(normalizer: RunningStatisticsState,
+                        params: Mapping[str, Any], device='cuda',
+                        policy_obs_key: str = 'state',
+                        value_obs_key: str = 'state'):
+  """(normalizer, ``PPONetworks``) on ``device`` holding JAX-layout
+  parameters (as ``load_ppo_params`` gives them); the layer sizes come
+  from the weights, the observation keys from the caller."""
+  sizes = {net: [np.shape(layer['w']) for layer in params[net]]
+           for net in ('policy', 'value')}
+  obs_size = {value_obs_key: sizes['value'][0][0],
+              policy_obs_key: sizes['policy'][0][0]}
+  if len(obs_size) == 1:
+    obs_size = obs_size[policy_obs_key]
+  net = make_ppo_networks(
+      obs_size, sizes['policy'][-1][1] // 2,
+      policy_hidden_layer_sizes=[out for _, out in sizes['policy'][:-1]],
+      value_hidden_layer_sizes=[out for _, out in sizes['value'][:-1]],
+      policy_obs_key=policy_obs_key, value_obs_key=value_obs_key)
+  normalizer, sd = ppo_params_from_numpy(normalizer, params, device)
+  net.load_state_dict(sd)
+  return normalizer, net.to(device).eval()
 
 
-def make_policy(normalizer: RunningStatisticsState, policy,
-                device='cuda', obs_key: str = 'state') -> PPOPolicy:
-  """A ``PPOPolicy`` on ``device`` holding the given JAX parameters; its
-  sizes come from the weights."""
-  sizes = [np.asarray(layer['w']).shape for layer in policy]
-  net = PPOPolicy(sizes[0][0], sizes[-1][1] // 2,
-                  [out for _, out in sizes[:-1]], obs_key=obs_key)
-  net.load_state_dict(params_from_numpy(normalizer, policy, obs_key))
-  return net.to(device).eval()
+def make_policy(normalizer: RunningStatisticsState, params, device='cuda',
+                obs_key: str = 'state', value_obs_key: str = 'state'):
+  """The deterministic policy obs → action of trained JAX-layout
+  parameters: the normalizer, ``PPONetworks.policy_logits`` on entry
+  ``obs_key`` of a dict observation, the distribution's mode
+  (``make_inference_fn(..., deterministic=True)``).  Where the normalizer
+  is over a dict observation, the policy also takes that entry alone."""
+  weights = networks_from_numpy(normalizer, params, device, obs_key,
+                                value_obs_key)
+  policy = make_inference_fn(weights[1], running_statistics.normalize)(
+      weights, deterministic=True)
+  by_key = isinstance(weights[0].mean, dict)
+
+  def act(obs):
+    if by_key and not isinstance(obs, dict):
+      obs = {obs_key: obs}
+    return policy(obs, None)[0]
+
+  return act

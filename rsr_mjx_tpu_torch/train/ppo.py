@@ -14,9 +14,10 @@ mode; the physics never sees a tensor that requires grad.  The random
 draws come from ``torch.Generator``s seeded from ``seed``: the networks'
 initialisation on the CPU (the same on every device), the env reset, the
 rollout noise, the permutations and entropy draws, and the evaluation,
-each its own stream on ``device``.  Multi-GPU training (ROADMAP item 7),
-domain randomization (item 5) and the RSR penalty (item 3) are not ported
-yet and raise.
+each its own stream on ``device``.  ``past_data`` (an ``rsr.RSRData``)
+puts the RSR penalty, times ``rsr_loss_scale``, into every minibatch's
+loss.  Multi-GPU training (ROADMAP item 7) and domain randomization
+(item 5) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -151,9 +152,6 @@ def train(
   if devices is not None and len(devices) > 1:
     raise NotImplementedError('training on more than one device is not '
                               'ported yet: ROADMAP item 7')
-  # raises for past data (the RSR penalty) before any rollout
-  ppo_losses.compute_rsr_loss(past_data, rsr_loss_scale, torch.zeros(()))
-
   # loop arithmetic (RSR/train.py:150-168)
   env_step_per_training_step = (
       batch_size * unroll_length * num_minibatches * action_repeat)

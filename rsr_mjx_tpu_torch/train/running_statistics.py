@@ -92,7 +92,7 @@ def update(state: RunningStatisticsState, batch) -> RunningStatisticsState:
 
 def normalize(state: RunningStatisticsState, batch):
   """(batch − mean) / std, as the JAX ``normalize``, entry by entry for a
-  dict observation; ``PPOPolicy`` applies the same to its buffers."""
+  dict observation."""
   return leaf_map(lambda x, m, s: (x - m) / s, batch, state.mean, state.std)
 
 

@@ -2,7 +2,7 @@
 
 1. The trained joystick policy (logs/go2_joystick_50M_r5/final_params.pkl,
    48→512→256→128→24, normalizer over a dict observation), its weights
-   carried into the port by ``params_from_numpy(obs_key='state')``, against
+   carried into the port by ``networks.make_policy(obs_key='state')``, against
    the JAX ``make_policy(deterministic=True)``; rtol 1e-5 (same fp32 MLP,
    other summation order).
 2. The whole slice: a JAX reset of the wrapped env with the observation
@@ -67,8 +67,8 @@ def _jax_policy():
 
 def _port_policy():
   normalizer, params = pnets.load_ppo_params(PARAMS)
-  return pnets.make_policy(normalizer, params['policy'], device='cpu',
-                           obs_key='state')
+  return pnets.make_policy(normalizer, params, device='cpu',
+                           obs_key='state', value_obs_key='privileged_state')
 
 
 def test_go2_policy_matches_jax():

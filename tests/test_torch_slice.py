@@ -1,8 +1,9 @@
 """The port's serving slice against the JAX package's.
 
 1. The trained cube-push PPO policy (logs/cube_ppo_15M_r4/final_params.pkl),
-   its weights carried into the port by ``params_from_numpy``, against the
-   JAX ``make_policy(..., deterministic=True)`` on the same observations.
+   carried into the port by ``networks.make_policy`` (``PPONetworks`` on
+   ``ppo_params_from_numpy``, its policy's mode), against the JAX
+   ``make_policy(..., deterministic=True)`` on the same observations.
 2. The whole slice: a JAX reset of the wrapped AirbotCubePushTrain env is
    handed to the port's wrapped env, then both run 3 control steps of the
    deterministic policy (the JAX Pallas kernels in interpret mode, the
@@ -53,7 +54,7 @@ def _jax_policy():
 
 def _port_policy():
   normalizer, params = pnets.load_ppo_params(PARAMS)
-  return pnets.make_policy(normalizer, params['policy'], device='cpu')
+  return pnets.make_policy(normalizer, params, device='cpu')
 
 
 def test_policy_matches_jax():

@@ -4,8 +4,9 @@ Inputs come from numpy seeds; where a function draws, the JAX draw is
 handed to the port.  Tolerances (fp32 throughout, sums in another order):
   - GAE, the distribution and the Welford update: rtol 1e-6 (elementwise
     arithmetic and short sums);
-  - the PPO loss and its metrics: rtol 1e-5; its gradients, per parameter
-    tensor, within 1e-5 of that tensor's largest entry;
+  - the PPO loss, its metrics and its gradients (with and without the RSR
+    penalty): each held, as is the JAX package's fp32 result, to the port's
+    own evaluation in float64 (see test_ppo_loss_and_gradients_match_jax);
   - clip + Adam, fed the same gradients: parameters within 1e-9 + 1e-6
     relative (the two compute m̂/(√v̂ + ε) in another order);
   - parameters carried between the layouts: exact;
@@ -23,12 +24,14 @@ import pytest
 import torch
 
 from rsr_mjx_tpu.envs import core as jcore
+from rsr_mjx_tpu.rsr import loss as jrsr
 from rsr_mjx_tpu.envs import wrappers as jwrappers
 from rsr_mjx_tpu.train import acting as jacting
 from rsr_mjx_tpu.train import configs as jconfigs
 from rsr_mjx_tpu.train import losses as jlosses
 from rsr_mjx_tpu.train import networks as jnets
 from rsr_mjx_tpu.train import running_statistics as jrs
+from rsr_mjx_tpu_torch import rsr as prsr
 from rsr_mjx_tpu_torch.envs import core as pcore
 from rsr_mjx_tpu_torch.envs import wrappers as pwrappers
 from rsr_mjx_tpu_torch.train import acting as pacting
@@ -159,46 +162,114 @@ def _loss_problem(dict_obs: bool, rng):
   return jnet, params, normalizer, data, obs_size, keys
 
 
-@pytest.mark.parametrize('dict_obs,normalize_advantage',
-                         [(False, True), (True, False)])
-def test_ppo_loss_and_gradients_match_jax(dict_obs, normalize_advantage):
+U32 = 2.0 ** -24  # unit roundoff of float32
+
+
+def _rsr_problem():
+  """Fixed transition sets (obs 7 + act 3 + next obs 7) and JAX's penalty
+  state at bandwidth 2.0, where the KDE is not saturated and the penalty
+  and its gradient are not zero."""
+  rng = np.random.default_rng(7)
+  real = f32(rng, 12, 7 + A + 7)
+  prev = real + f32(rng, *real.shape, scale=0.5)
+  cur = real + f32(rng, *real.shape, scale=0.2)
+  return (real, prev, cur), jrsr.build_rsr_data(real, prev, cur,
+                                                bandwidth=2.0)
+
+
+def _port_loss(data, obs_size, keys, normalizer, params, noise, kw, rsr_sets,
+               jgrid, dtype):
+  """The port's loss, metrics and gradients in ``dtype`` on the CPU, from
+  the same float32 inputs as the JAX evaluation (the RSR state rebuilt
+  from the same sets on JAX's grid)."""
+  pnet = pnets.make_ppo_networks(obs_size, A, **SIZES, **keys)
+  pnorm, sd = pnets.ppo_params_from_numpy(normalizer, params, device='cpu')
+  pnet.load_state_dict(sd)
+  pnet.to(dtype)
+  past = None
+  if rsr_sets is not None:
+    past = prsr.build_rsr_data(
+        *(torch.from_numpy(x).to(dtype) for x in rsr_sets), bandwidth=2.0,
+        grid=jgrid)
+  pdata = jax.tree.map(lambda x: x.to(dtype), tensors(tuple(data)))
+  loss, metrics = plosses.compute_ppo_loss(
+      pnet, prs.to(pnorm, 'cpu', dtype), plosses.Transition(*pdata),
+      noise.to(dtype), past_data=past, **kw)
+  loss.backward()
+  grads = {k: p.grad.double().numpy() for k, p in pnet.named_parameters()}
+  return loss.item(), {k: v.item() for k, v in metrics.items()}, grads
+
+
+@pytest.mark.parametrize(
+    'dict_obs,normalize_advantage,with_rsr',
+    [(False, True, False), (True, False, False), (False, True, True),
+     (True, False, True)],
+    ids=['False-True', 'True-False', 'False-True-rsr', 'True-False-rsr'])
+def test_ppo_loss_and_gradients_match_jax(dict_obs, normalize_advantage,
+                                          with_rsr):
+  """The port's fp32 loss, metrics and gradients against the port's own
+  evaluation of the same loss in float64, per metric and per parameter
+  tensor at its largest entry:
+   - that it is JAX's loss: the JAX package's fp32 result within 1e-4 of
+     the float64 one (relative; measured within 4.6e-6, while taking the
+     penalty on normalised observations moves it by 4e-3 or more);
+   - precision: |port − f64| <= 8·|jax − f64| + 16·u·|f64| (u = 2⁻²⁴): the
+     two fp32 results err by the rounding of the same operations in other
+     orders, so neither may be far worse than the other; the floor covers
+     a JAX result that happens to land on the float64 one.
+  (Held elementwise to each other, 1e-5 of the largest entry, they parted
+  by 4.56e-6 against 4.38e-6 in a policy bias on one machine's CPU: both
+  are that far from float64 there.)  With the RSR cases the penalty
+  (bandwidth 2.0, JAX's grid) is in the loss, on the mode action and the
+  raw observations, for dict observations the policy's entry."""
   rng = np.random.default_rng(3)
   jnet, params, normalizer, data, obs_size, keys = _loss_problem(dict_obs,
                                                                  rng)
   kw = dict(entropy_cost=2e-2, discounting=0.96, reward_scaling=0.1,
             gae_lambda=0.95, clipping_epsilon=0.3,
             normalize_advantage=normalize_advantage)
+  rsr_sets, jpast, jgrid = None, None, None
+  if with_rsr:
+    rsr_sets, jpast = _rsr_problem()
+    jgrid = np.asarray(jpast.grid)
   loss_fn = functools.partial(jlosses.compute_ppo_loss, ppo_network=jnet,
-                              past_data=None, **kw)
+                              past_data=jpast, **kw)
   key = jax.random.PRNGKey(5)
   (jloss, jmetrics), jgrads = jax.jit(
       jax.value_and_grad(loss_fn, has_aux=True))(params, normalizer, data,
                                                  key)
-
-  pnet = pnets.make_ppo_networks(obs_size, A, **SIZES, **keys)
-  pnorm, sd = pnets.ppo_params_from_numpy(normalizer, params, device='cpu')
-  pnet.load_state_dict(sd)
   noise = torch.from_numpy(np.array(jax.random.normal(key, (T, B, A))))
-  ploss, pmetrics = plosses.compute_ppo_loss(
-      pnet, pnorm, plosses.Transition(*tensors(data)), noise, **kw)
-  ploss.backward()
+  args = (data, obs_size, keys, normalizer, params, noise, kw, rsr_sets,
+          jgrid)
+  ploss, pmetrics, pgrads = _port_loss(*args, torch.float32)
+  rloss, rmetrics, rgrads = _port_loss(*args, torch.float64)
+
+  def held(p, j, r, what):
+    err_p, err_j = np.abs(p - r).max(), np.abs(j - r).max()
+    assert err_j <= 1e-4 * np.abs(r).max(), (
+        f'{what}: |jax - f64| {err_j:.3g}, f64 {np.abs(r).max():.3g}')
+    bound = 8 * err_j + 16 * U32 * np.abs(r).max()
+    assert err_p <= bound, (f'{what}: |port - f64| {err_p:.3g} > {bound:.3g} '
+                            f'(|jax - f64| {err_j:.3g})')
+
   assert sorted(pmetrics) == sorted(jmetrics)
   for k, v in jmetrics.items():
-    np.testing.assert_allclose(pmetrics[k].numpy(), np.asarray(v),
-                               rtol=1e-5, atol=1e-7, err_msg=k)
-  np.testing.assert_allclose(ploss.item(), float(jloss), rtol=1e-5)
-  pgrads = pnets.ppo_params_to_numpy(
-      pnorm, {k: p.grad for k, p in pnet.named_parameters()})[1]
+    held(pmetrics[k], float(v), rmetrics[k], k)
+  held(ploss, float(jloss), rloss, 'loss')
+  if with_rsr:
+    assert rmetrics['sim2real_loss'] > 1e-3
+  assert len(pgrads) == sum(2 * len(jgrads[net]) for net in jgrads)
   for net in ('policy', 'value'):
-    for i, (pl, jl) in enumerate(zip(pgrads[net], jgrads[net])):
-      for w in ('w', 'b'):
-        j = np.asarray(jl[w])
-        np.testing.assert_allclose(pl[w], j, rtol=0,
-                                   atol=1e-5 * np.abs(j).max(),
-                                   err_msg=f'{net} layer {i} {w}')
+    for i, jl in enumerate(jgrads[net]):
+      for w, name in (('w', 'weight'), ('b', 'bias')):
+        k = f'{net}.layers.{i}.{name}'
+        held(pgrads[k], np.asarray(jl[w], np.float64).T, rgrads[k],
+             f'{net} layer {i} {w}')
 
 
 def test_rsr_term_is_zero_without_past_data_and_raises_with_it():
+  """Zeros with rsr_loss_scale 0 whatever past_data is, and JAX's
+  TypeError for a past_data that is not RSRData."""
   rng = np.random.default_rng(3)
   _, params, normalizer, data, obs_size, _ = _loss_problem(False, rng)
   pnet = pnets.make_ppo_networks(obs_size, A, **SIZES)
@@ -208,7 +279,7 @@ def test_rsr_term_is_zero_without_past_data_and_raises_with_it():
   _, m = plosses.compute_ppo_loss(pnet, pnorm, tensors(data), noise,
                                   past_data=object(), rsr_loss_scale=0.0)
   assert m['sim2real_loss'] == 0 and m['rsr_distribution_distance'] == 0
-  with pytest.raises(NotImplementedError, match='ROADMAP item 3'):
+  with pytest.raises(TypeError, match='past_data must be RSRData or None'):
     plosses.compute_ppo_loss(pnet, pnorm, tensors(data), noise,
                              past_data=object())
 
@@ -291,8 +362,8 @@ def test_ppo_config_matches_jax():
   jcfg['network_factory'] = {k: list(v) for k, v in
                              jcfg['network_factory'].items()}
   assert pcfg == jcfg
-  with pytest.raises(ValueError, match='Go2 training slice'):
-    pconfigs.ppo_config('Go2JoystickFlatTerrain')
+  with pytest.raises(ValueError, match='Unsupported env'):
+    pconfigs.ppo_config('Go2NoSuchTask')
 
 
 # A scripted episode for the eval wrapper: step t gives reward, done, the

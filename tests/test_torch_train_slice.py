@@ -261,5 +261,5 @@ def test_cli_writes_progress_and_final_params(tmp_path):
   assert [layer['w'].shape for layer in params['policy']] == [
       (23, 32), (32, 32), (32, 32), (32, 32), (32, 10)]
   # the serving path takes the trained pickle as it takes the JAX one
-  policy = pnets.make_policy(normalizer, params['policy'], device='cpu')
+  policy = pnets.make_policy(normalizer, params, device='cpu')
   assert policy(torch.zeros(2, 23)).shape == (2, 5)

@@ -8,7 +8,7 @@ only the times of K1 and K2 through the public wrappers of the port found
 under DIR, a directory inside this repository that holds another commit of
 it (this tree when DIR is left out): the way to time a parent's kernels and
 this tree's within one call on one card (see wrapper_times).  It imports
-the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Five
+the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Six
 paths are driven.  Two serve a trained policy run deterministically, each
 through ``envs.load`` → ``wrap_for_training`` → ``env.step``: cube-push
 (``AirbotCubePushTrain``, kernels K1, K2, K3) and the Go2 joystick
@@ -16,8 +16,11 @@ through ``envs.load`` → ``wrap_for_training`` → ``env.step``: cube-push
 cube-push through ``ppo.train`` at the tuned width (K1, K2, K3 in its
 rollouts), RSR policy training on cube-push through
 ``rsr.pipeline.policy_params_training`` with the penalty on (K1, K2, K3),
-and PPO on the Go2 joystick at its tuned table (K1, K4).  Phases; any
-failure exits non-zero before the result line is printed:
+and PPO on the Go2 joystick at its tuned table (K1, K4).  One tunes the
+cube's friction through ``rsr.pipeline.env_params_tuning`` with gradients
+through the step (K1, K2, K3 forward; K1, K2, K4 in the recomputation and
+the backward).  Phases; any failure exits non-zero before the result line
+is printed:
 
   1. device   a CUDA card is required (no CPU path); print the card's name and
               power limit; TF32 off; build the four CUDA kernels from
@@ -26,8 +29,9 @@ failure exits non-zero before the result line is printed:
               one control step of the batch), held against its plain
               PyTorch version on the same inputs, env by env (see
               check_kernels and check_k4): K1 spd_solve_lanes at nv 20
-              (cube-push) and nv 18 (Go2), K2 contact_select_lanes also on
-              dist rounded to create exact ties, K3 newton_lanes_pyr_t,
+              (cube-push) and nv 18 (Go2), K2 contact_select_lanes (its
+              rows and its picked slots, both exact) also on dist rounded
+              to create exact ties, K3 newton_lanes_pyr_t,
               K4 _newton_lanes_core on the Go2 rows at the Go2 schedule
               (1 x 5) and at 6 x 6, and on the cube-push model's generic
               rows (basis off, nv 20) at 6 x 6, where its objective is also
@@ -101,7 +105,33 @@ failure exits non-zero before the result line is printed:
               env-steps): phase 4's rates and checks (launches S + 1 of K1
               and K4), K1 and K4 on the last training substep's inputs, the
               SGD check on dict observations, the evaluator as in phase 4.
-  7. result   one JSON line of the kernels (launches of all five paths),
+  7. tuning   ``rsr.pipeline.env_params_tuning`` on ``AirbotCubePush``
+              with ``data_rsr_demo/``, the gradient through the physics
+              step (FusedRegion: the forward on K1, K2, K3; the
+              recomputation on K1, K2, K4; the backward on K1, the IFT
+              solve included), in two runs: the demo's command (30
+              transitions from 15, k = 1, init 0.4, bounds x0.2 and x10,
+              lr 0.005) for 10 Adam steps and the slip run of
+              tuned_params_slip_k8pd.json (k = 8, per_dim_error, 23
+              windows) for 2.  Per Adam step after the first: seconds from
+              CUDA events, split into the forward and the backward; the
+              loss and friction trajectory; one step under torch.profiler
+              (device busy time, idle share, kernels).  Checks: at 0.4 (a
+              tie with the table's friction) and 0.6 the card's loss and
+              gradient held to the CPU's float64 as closely as the CPU's
+              fp32 is, the float64 gradient printed beside central and
+              one-sided differences (step 1e-4; not held, the IFT gradient
+              at an unconverged solve is JAX's: see tuning_reference);
+              finite losses, the friction moved
+              and within its bounds; the launches of every Adam step equal
+              7 S - 1, 2 S, S, S for its S substeps (K1, K2, K3, K4; the
+              first substep's smooth solve has no backward); K4 on the last
+              recomputation's inputs (nv 20, R0 181, 6 x 6, B 30) at every
+              E that fits and K1 on the IFT systems under phase 2's
+              criteria, NaN-triangle check included, with their times and
+              bounds; K2's picks equal the plain version's and its backward
+              the plain gather's.
+  8. result   one JSON line of the kernels (launches of all six paths),
               the card's name and power limit, and last the line
               {"ok": true, "device": {...}}.
 """
@@ -306,9 +336,10 @@ def k1_work(At, bt):
 def k2_work(pair_struct, nsel, dist_l, feat_dyn, ptab):
   ncon, Fd, B = feat_dyn.shape
   Ptot, nst = ptab.shape
-  # every dist read once; only the selected slots' features are needed
+  # every dist read once; only the selected slots' features are needed;
+  # the rows and the picked slots written
   nbytes = 4 * (ncon * B + nsel * Fd * B + Ptot * nst + ncon
-                + nsel * (Fd + nst) * B)
+                + nsel * (Fd + nst) * B + nsel * B)
   flops = ncon * B  # each dist compared at least once
   return nbytes, flops
 
@@ -585,7 +616,8 @@ def check_k1_widths(torch, lk):
 
 
 def check_k2_sizes(torch, lk):
-  """K2 on seeded inputs with exact ties, exact against the plain version:
+  """K2 on seeded inputs with exact ties, exact against the plain version
+  (the gathered rows and the picked slots):
   a number of slots that is no multiple of 32, all slots selected
   (nsel == ncon), more than 512 slots (the keys in shared memory instead of
   registers), batches that are no multiple of any E; some dists are +inf,
@@ -603,13 +635,13 @@ def check_k2_sizes(torch, lk):
     dist, feat = f32(d), f32(rng.normal(size=(ncon, 13, B)))
     ptab = f32(rng.normal(size=(ncon, 33)))
     struct = ((ncon, 1, 0),)
-    same = torch.equal(
+    same = all(torch.equal(k, p) for k, p in zip(
         lk.contact_select_lanes(struct, nsel, dist, feat, ptab),
         lk.contact_select_plain(struct, nsel,
                                 torch.nan_to_num(dist, nan=float('inf'),
                                                  posinf=float('inf'),
                                                  neginf=-float('inf')),
-                                feat, ptab))
+                                feat, ptab)))
     parts.append(f'ncon {ncon} nsel {nsel} B {B} '
                  f'{"exact" if same else "DIFFERS"}')
     ok = ok and same
@@ -620,15 +652,18 @@ def check_k2_sizes(torch, lk):
 
 
 def k2_row(torch, lk, args, tag='cube-push'):
-  """K2 on the recorded selection: exact equality with the plain version on
-  the recorded dist and on dist rounded to exact ties, each also at every E
+  """K2 on the recorded selection: exact equality with the plain version
+  (the gathered rows, and the picked slots, which must be equal too) on the
+  recorded dist and on dist rounded to exact ties, each also at every E
   that fits, on the batch cut by 3 envs and on its first 5 envs.  Times on
   the recorded inputs, and the time at each E also on the batch tiled to
   8192 envs."""
   pair_struct, nsel, dist_l, feat_dyn, ptab = args
   tied = (torch.round(dist_l * 20) / 20).contiguous()
-  differs = lambda a: (lk.contact_select_lanes(*a)
-                       - lk.contact_select_plain(*a)).abs().max().item()
+
+  def differs(a):
+    (sk, pk), (sp, pp) = lk.contact_select_lanes(*a), lk.contact_select_plain(*a)
+    return (sk - sp).abs().max().item() if torch.equal(pk, pp) else math.inf
   seen, err, parts = {}, 0.0, []
   with force_E(lk, None, seen):
     lk.contact_select_lanes(*args)
@@ -663,8 +698,8 @@ def k2_row(torch, lk, args, tag='cube-push'):
       plain_ms=time_ms(torch, lambda: lk.contact_select_plain(*args), 10),
       library_ms=time_ms(torch, topk_gather, 50),
       library_device_ms=profiler_total_ms(torch, topk_gather, 20),
-      note=f'exact, at every E ({seen["fits"]}), on {B - 3} and 5 envs; tie '
-           f'case has {n_tied} equal neighbouring slots',
+      note=f'rows and picks exact, at every E ({seen["fits"]}), on {B - 3} '
+           f'and 5 envs; tie case has {n_tied} equal neighbouring slots',
   )
 
 
@@ -1714,6 +1749,355 @@ def go2_train_phase(torch, port, lk, card):
   return r.launches
 
 
+# env-parameter tuning on the demo data (logs/rsr_demo_r4/README.md): the
+# demo's command and the slip run of tuned_params_slip_k8pd.json, each cut to
+# a few Adam steps: (tag, first transition, transitions, rollout horizon k,
+# per_dim_error, Adam steps)
+TUNE_RUNS = (('demo', 15, 30, 1, False, 10),
+             ('slip k8pd', 15, 30, 8, True, 2))
+TUNE_INIT, TUNE_LR = 0.4, 0.005
+TUNE_FD_STEP = 1e-4  # the differences of the float64 loss printed beside
+# per substep of a gradient step: the forward K1 twice, K2, K3; the
+# recomputation K1 twice, K2, K4; the backward K1 three times (the implicit
+# solve's, the IFT solve, the smooth solve's), except in the first substep:
+# its state carries no gradient and the smooth stage reads no tuned leaf, so
+# its smooth solve has no backward (what XLA's dead-code elimination leaves
+# of JAX's backward too)
+TUNE_LAUNCHES = lambda S: {
+    'spd_solve_lanes': 7 * S - 1, 'contact_select_lanes': 2 * S,
+    'newton_lanes_pyr_t': S, '_newton_lanes_core': S}
+# the template: the reset's forward, then one control step (4 substeps)
+TUNE_TEMPLATE_LAUNCHES = {'spd_solve_lanes': 9, 'contact_select_lanes': 5,
+                          'newton_lanes_pyr_t': 5, '_newton_lanes_core': 0}
+
+
+def state_to(torch, state, device, dtype):
+  """A copy of a ``core.State`` on ``device``, its floating tensors in
+  ``dtype``."""
+  def mv(x):
+    if not torch.is_tensor(x):
+      return x
+    return x.to(device, dtype) if x.is_floating_point() else x.to(device)
+  return state.replace(
+      data=state.data.map(mv), obs=mv(state.obs), reward=mv(state.reward),
+      done=mv(state.done), metrics={k: mv(v) for k, v in state.metrics.items()},
+      info={k: mv(v) for k, v in state.info.items()})
+
+
+def tuning_loss_fn(port, env, run, template, device):
+  """The tuning objective of ``run`` on ``env``, the loss that
+  ``env_params_tuning`` descends."""
+  _, s, n, k, per_dim, _ = run
+  obs, act = port.tune_obs, port.tune_act
+  return port.rsr_pipeline.make_env_tuning_loss(
+      env, obs[s:s + n], act[s:s + n], obs[s + 1:s + n + 1],
+      rollout_horizon=k, per_dim_error=per_dim, template=template,
+      device=device)
+
+
+def loss_and_grad(torch, fn, p, device, dtype):
+  """The tuning loss and its gradient at the float32 parameter ``p``."""
+  x = torch.tensor(p, dtype=torch.float32).to(device, dtype)
+  x.requires_grad_(True)
+  with torch.enable_grad():
+    loss = fn(x)
+    (g,) = torch.autograd.grad(loss, x)
+  return loss.item(), g.item()
+
+
+def tuning_reference(torch, port, env_g, run, card):
+  """Check 1 of phase 7: at the initial parameter (which ties with the
+  table's friction 0.4, so torch.maximum gives half the gradient to each
+  side) and at 0.6, the card's loss and gradient against the CPU's float64
+  as closely as the CPU's fp32 path is (the reference() criterion:
+  |card − f64| <= 10·|cpu − f64| + 1e-6).
+
+  Beside it, not held: the float64 gradient against a central difference
+  of the float64 loss (step TUNE_FD_STEP) and the one-sided differences.
+  The gradient is JAX's: the implicit function theorem at the iterate of
+  the fixed 6 x 6 solve, which is the loss's derivative only where that
+  solve has converged; from the tuning template's violent states it often
+  has not, and the two part by up to 10 times (ROADMAP §3).  On the JAX
+  package's own template (PRNGKey(0)) both packages give that same
+  gradient, a tenth of the central difference, at 0.4 and 0.6
+  (tests/torch_tuning_gradient.py); the card's template comes from the
+  port's reset, so its gradient differs from the JAX record's.  The CPU
+  tests hold the gradient to JAX's and to central differences where the
+  solve converges (tests/test_torch_tuning.py)."""
+  template = port.rsr_pipeline.tuning_template(env_g, DEV)
+  f64 = torch.float64
+  fns = {}
+  for tag, dev, dtype in (('card', DEV, torch.float32),
+                          ('cpu', 'cpu', torch.float32), ('f64', 'cpu', f64)):
+    env = env_g if tag == 'card' else port.envs.load(RSR_ENV, device=dev,
+                                                      dtype=dtype)
+    tmpl = tuple(state_to(torch, st, dev, dtype) for st in template)
+    fns[tag] = (tuning_loss_fn(port, env, run, tmpl, dev), dev, dtype)
+  ok = True
+  for p in (TUNE_INIT, 0.6):
+    v = {t: loss_and_grad(torch, fn, p, dev, dtype)
+         for t, (fn, dev, dtype) in fns.items()}
+    good = True
+    for i in range(2):  # loss, gradient
+      d_card = abs(v['card'][i] - v['f64'][i])
+      d_cpu = abs(v['cpu'][i] - v['f64'][i])
+      good = good and d_card <= 10 * d_cpu + 1e-6
+    fn64 = fns['f64'][0]
+    e = TUNE_FD_STEP
+    with torch.no_grad():
+      x = torch.tensor(p, dtype=torch.float32).to(f64)
+      lo, mid, hi = (fn64(x + d).item() for d in (-e, 0.0, e))
+    fd, right, left = (hi - lo) / (2 * e), (hi - mid) / e, (mid - lo) / e
+    g64 = v['f64'][1]
+    log(f'tuning reference at {p}: loss card {v["card"][0]!r} CPU fp32 '
+        f'{v["cpu"][0]!r} float64 {v["f64"][0]!r}; gradient card '
+        f'{v["card"][1]!r} CPU fp32 {v["cpu"][1]!r} float64 {g64!r} '
+        f'{"ok" if good else "FAIL"}; not held: differences of the float64 '
+        f'loss (step {e}) central {fd!r}, right {right!r}, left {left!r}, '
+        f'gradient/central {g64 / fd if fd else math.inf:.4g}')
+    ok = ok and good
+  if not ok:
+    raise SystemExit('tuning: the card\'s loss or gradient disagrees with '
+                     'the float64 reference')
+
+
+def tuning_run(torch, port, lk, run, card, record=False):
+  """One ``env_params_tuning`` run on the card from a fresh env, as the
+  tuning CLI makes it: each Adam step timed by CUDA events, split into the
+  forward (the loss) and the backward (the gradient, the containment and
+  the update), with its launches.  ``record`` keeps the inputs of the last
+  step's K4 call, its K2 call and the IFT systems K1 solved in it.
+  Returns (per-step records, recorded calls, total launches)."""
+  pipe = port.rsr_pipeline
+  tag, s, n, k, per_dim, steps = run
+  obs, act = port.tune_obs, port.tune_act
+  env = port.envs.load(RSR_ENV, device=DEV)
+  real_update, real_ift = pipe.tuning_update, port.solver._ift_cotangents
+  rec, calls, in_ift = [], {'ift': []}, [False]
+
+  def timed_update(loss_fn, params, optimizer, lo, hi):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    before = dict(lk.LAUNCHES)
+
+    def timed_loss(x):
+      out = loss_fn(x)
+      ev[1].record()
+      return out
+
+    ev[0].record()
+    loss = real_update(timed_loss, params, optimizer, lo, hi)
+    ev[2].record()
+    rec.append((ev, {kk: lk.LAUNCHES[kk] - before[kk] for kk in before},
+                loss))
+    return loss
+
+  def ift(*a):
+    in_ift[0] = True
+    try:
+      return real_ift(*a)
+    finally:
+      in_ift[0] = False
+
+  pipe.tuning_update = timed_update
+  if record:
+    port.solver._ift_cotangents = ift
+    k1 = lk.spd_solve_lanes
+
+    def k1_rec(*a):
+      if in_ift[0]:
+        calls['ift'] = (calls['ift'] + [a])[-4:]
+      return k1(*a)
+
+  result = []
+
+  def go():
+    result.append(pipe.env_params_tuning(
+        env, steps, TUNE_INIT, TUNE_INIT * 0.2, TUNE_INIT * 10.0,
+        obs[s:s + n], act[s:s + n], obs[s + 1:s + n + 1],
+        learning_rate=TUNE_LR, rollout_horizon=k, per_dim_error=per_dim,
+        device=DEV))
+
+  zero_launches(lk)
+  try:
+    if record:
+      lk.spd_solve_lanes = k1_rec
+      calls.update(record_calls(lk, go, keep=1))
+    else:
+      go()
+  finally:
+    pipe.tuning_update = real_update
+    port.solver._ift_cotangents = real_ift
+    if record:
+      lk.spd_solve_lanes = k1
+  return rec, calls, dict(lk.LAUNCHES), result[0]
+
+
+def tuning_checks(torch, run, rec, launches, result, card):
+  """Checks 2 and 3 of phase 7 on one run: finite losses, the parameter
+  moved and within its bounds; the launches of every Adam step equal
+  TUNE_LAUNCHES of its substeps, and the run's total adds the template's.
+  Prints the trajectory and the times per Adam step after the first."""
+  tag, s, n, k, per_dim, steps = run
+  params, train_log = result
+  torch.cuda.synchronize()
+  fwd = [r[0][0].elapsed_time(r[0][1]) for r in rec]
+  bwd = [r[0][1].elapsed_time(r[0][2]) for r in rec]
+  S = 4 * k  # substeps of one rollout step of every window
+  windows = n - k + 1 if k > 1 else n
+  per_step = TUNE_LAUNCHES(S)
+  failed = []
+  for i, r in enumerate(rec):
+    if r[1] != per_step:
+      failed.append(f'step {i} launches {r[1]} != {per_step}')
+  total = {kk: TUNE_TEMPLATE_LAUNCHES[kk] + steps * per_step[kk]
+           for kk in per_step}
+  if launches != total:
+    failed.append(f'run launches {launches} != {total}')
+  losses = train_log['loss']
+  traj = [float(p) for p in train_log['params']]
+  if not all(math.isfinite(x) for x in losses):
+    failed.append('a loss is not finite')
+  lo, hi = TUNE_INIT * 0.2, TUNE_INIT * 10.0
+  if not (traj[-1] != TUNE_INIT and all(lo - 1e-7 <= p <= hi + 1e-7
+                                        for p in traj)):
+    failed.append(f'parameter trajectory {traj} did not move or left '
+                  f'[{lo}, {hi}]')
+  after = slice(1, None) if steps > 1 else slice(None)
+  mean = lambda xs: sum(xs) / len(xs)
+  log(f'tuning {tag}: {n} transitions from {s}, k {k}, per_dim_error '
+      f'{per_dim}, {windows} windows of {S} substeps, lr {TUNE_LR}; loss '
+      f'{losses}; friction {traj}; s per Adam step after the first (CUDA '
+      f'events): {mean(fwd[after]) / 1e3 + mean(bwd[after]) / 1e3:.4f} '
+      f'(forward {mean(fwd[after]) / 1e3:.4f}, backward and update '
+      f'{mean(bwd[after]) / 1e3:.4f}); first step {(fwd[0] + bwd[0]) / 1e3:.4f}'
+      f' s; launches per Adam step {per_step}; card {card}')
+  if failed:
+    raise SystemExit(f'tuning {tag} failed: {failed}')
+  return (mean(fwd[after]) + mean(bwd[after])) / 1e3
+
+
+def k2_grad_check(torch, lk, args):
+  """Check 5 of phase 7: on the recorded selection, K2's picks equal the
+  plain version's exactly, and K2's backward (``contact_select_backward``
+  on the kernel's picks) equals the autograd backward of the plain gather
+  on the same seeded cotangent: the slot cotangents exactly (one pick per
+  slot and env), the pair rows within 1e-5 of their scale (the pair rows
+  sum over envs in two atomic orders)."""
+  pair_struct, nsel, dist_l, feat_dyn, ptab = args
+  sel_k, picks_k = lk.contact_select_lanes(*args)
+  sel_p, picks_p = lk.contact_select_plain(*args)
+  g = torch.randn(sel_k.shape, generator=torch.Generator(
+      device=DEV).manual_seed(SEED), device=DEV)
+  gf_k, gt_k = lk.contact_select_backward(pair_struct, picks_k, g,
+                                          feat_dyn.shape[0],
+                                          feat_dyn.shape[1], ptab.shape[0])
+  f = feat_dyn.clone().requires_grad_(True)
+  t = ptab.clone().requires_grad_(True)
+  with torch.enable_grad():
+    sel, _ = lk.contact_select_plain(pair_struct, nsel, dist_l, f, t)
+    gf_p, gt_p = torch.autograd.grad(sel, (f, t), g)
+  same_picks = torch.equal(picks_k, picks_p) and torch.equal(sel_k, sel_p)
+  err_t = (gt_k - gt_p).abs().max().item()
+  ok = (same_picks and torch.equal(gf_k, gf_p)
+        and err_t <= 1e-5 * gt_p.abs().max().item() + 1e-12)
+  log(f'K2 under the gradient (tuning recomputation, {dist_l.shape[0]} -> '
+      f'{nsel} slots, B {dist_l.shape[1]}): picks {"equal" if same_picks else "DIFFER"}; '
+      f'backward: slot cotangents {"exact" if torch.equal(gf_k, gf_p) else "DIFFER"}, '
+      f'pair rows max |kernel - plain| {err_t:.3e} {"ok" if ok else "FAIL"}')
+  if not ok:
+    raise SystemExit('K2 backward disagrees with the plain gather\'s')
+
+
+def k4_every_E(torch, lk, tag, args):
+  """K4 on recorded inputs at every E that fits, under k4_ratios'
+  criteria at the inputs' schedule."""
+  seen, parts, ok = {}, [], True
+  with force_E(lk, None, seen):
+    lk._newton_lanes_core(*args)
+  for E in seen['fits']:
+    with force_E(lk, E):
+      _, r = k4_ratios(torch, lk, args, [(args[1], args[2])])
+    parts.append(f'E {E} {max(max(v) for (w, _), v in r.items() if w == "kernel"):.3g}')
+    ok = ok and kernel_ok(r)
+  log(f'K4 {tag} at every E that fits (chosen {seen["chosen"]}), worst '
+      f'error/tolerance: ' + ', '.join(parts) + (' ok' if ok else ' FAIL'))
+  return ok
+
+
+def profile_tuning_step(torch, port, lk, run, step_s):
+  """One Adam step of ``run`` under torch.profiler: device busy time, the
+  idle share against the unprofiled step (``step_s``), device kernels."""
+  from torch.profiler import ProfilerActivity, profile
+
+  pipe = port.rsr_pipeline
+  _, s, n, k, per_dim, _ = run
+  env = port.envs.load(RSR_ENV, device=DEV)
+  fn = tuning_loss_fn(port, env, run, None, DEV)
+  x = torch.tensor(TUNE_INIT, device=DEV, requires_grad=True)
+  opt = port.ppo.make_optimizer([x], TUNE_LR)
+  pipe.tuning_update(fn, x, opt, TUNE_INIT * 0.2, TUNE_INIT * 10.0)  # warm
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    pipe.tuning_update(fn, x, opt, TUNE_INIT * 0.2, TUNE_INIT * 10.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+  events = prof.key_averages()
+  kernels = [e for e in events
+             if e.device_type != torch.autograd.DeviceType.CPU]
+  busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+  log(f'tuning profile: 1 Adam step (k {k}), device busy {busy_ms:.3f} ms, '
+      f'idle share {1 - busy_ms / (step_s * 1e3):.4f} of the unprofiled '
+      f'step ({step_s * 1e3:.3f} ms); under the profiler wall '
+      f'{wall * 1e3:.3f} ms; {sum(e.count for e in kernels)} device kernels')
+  os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
+  with open(os.path.join(ROOT, 'chiprun_out', 'profile_tuning.txt'),
+            'w') as f:
+    f.write(events.table(sort_by='self_device_time_total', row_limit=40))
+
+
+def tuning_phase(torch, port, lk, card):
+  """Phase 7: ``rsr.pipeline.env_params_tuning`` on the card, on the demo
+  data, in the two runs of TUNE_RUNS, each from a fresh env as the tuning
+  CLI makes it; then the checks (see tuning_reference, tuning_checks,
+  k2_grad_check, k4_every_E) and K4 and K1 on the last recomputation's own
+  inputs.  Returns (the kernels' launches over both runs, rows for K4 and
+  K1 on the tuning path)."""
+  import_train(port)
+  port.solver = _port_module('physics.solver')
+  txt = port.rsr_datasets.txt_to_2d_array
+  port.tune_obs = txt(os.path.join(RSR_DATA, 'real_obs.txt'))
+  port.tune_act = txt(os.path.join(RSR_DATA, 'real_action.txt'))
+  launches = dict.fromkeys(KERNELS, 0)
+  demo_step_s, rows = None, {}
+  for run in TUNE_RUNS:
+    rec, calls, run_launches, result = tuning_run(
+        torch, port, lk, run, card, record=run is TUNE_RUNS[0])
+    step_s = tuning_checks(torch, run, rec, run_launches, result, card)
+    for kk in launches:
+      launches[kk] += run_launches[kk]
+    if run is TUNE_RUNS[0]:
+      demo_step_s = step_s
+      k4 = calls['_newton_lanes_core'][-1]
+      nv, R0, B = k4[6].shape
+      tag = f'tuning recomputation, nv {nv}, R0 {R0}, B {B}'
+      rows[f'K4 _newton_lanes_core ({tag})'] = k4_row(
+          torch, lk, tag, k4, [(k4[1], k4[2])])
+      if not k4_every_E(torch, lk, tag, k4):
+        raise SystemExit('K4 disagrees at an E on the tuning path')
+      ift = calls['ift']
+      tag = f'tuning IFT systems, n {ift[-1][1].shape[0]}, B {B}'
+      rows[f'K1 spd_solve_lanes ({tag})'] = k1_row(torch, lk, tag, ift)
+      k2_grad_check(torch, lk, calls['contact_select_lanes'][-1])
+      del calls, k4, ift
+  env_g = port.envs.load(RSR_ENV, device=DEV)
+  tuning_reference(torch, port, env_g, TUNE_RUNS[0], card)
+  profile_tuning_step(torch, port, lk, TUNE_RUNS[0], demo_step_s)
+  report(rows)
+  return launches
+
+
 def wrapper_times(torch, port, card) -> None:
   """The mode ``--wrapper-times [DIR]``: K1 at both paths' shapes and K2,
   through ``spd_solve_lanes`` and ``contact_select_lanes`` of the port
@@ -1914,13 +2298,17 @@ def main() -> int:
   # -- 6. PPO on the Go2 joystick
   g_t_launches = go2_train_phase(torch, port, lk, card)
 
-  # -- 7. result
+  # -- 7. env-parameter tuning on cube-push
+  tune_launches = tuning_phase(torch, port, lk, card)
+
+  # -- 8. result
   log('kernels: ' + ', '.join(f'{v[0]} {k}' for k, v in KERNELS.items()))
   out = []
   for name, (short, src, tpu) in KERNELS.items():
     r = rows[name]
     count = sum(phase[name] for phase in (launches, g_launches, t_launches,
-                                          r_launches, g_t_launches))
+                                          r_launches, g_t_launches,
+                                          tune_launches))
     if count <= 0:
       raise SystemExit(f'{name} was launched by no path')
     # ms and library_ms are device times from torch.profiler (the kernel by

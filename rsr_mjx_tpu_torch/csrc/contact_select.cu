@@ -8,8 +8,9 @@
 //   feat       (ncon, Fd, B)   per-slot dynamic features
 //   ptab       (Ptot, nst)     static per-pair columns (one row per pair)
 //   slot_pair  (ncon,) int32   pair row of each slot
-// Output:
+// Outputs:
 //   out        (nsel, Fd + nst, B): row j = features of the j-th nearest slot
+//   picks      (nsel, B) int32: that slot (the backward scatters through it)
 //
 // Order: ascending dist, ties to the LOWEST slot index, exactly
 // lax.top_k's order, as the TPU kernel's masked-min extraction gives.
@@ -41,7 +42,8 @@
 //  3. The whole block gathers and stores with the env fastest: thread
 //     (el, f) of pick j reads feat[(slot * Fd + f) * B + e] (scattered by
 //     nature: this is the gather) or the pair's static row from the copy of
-//     ptab, and writes out[(j * F + f) * B + e] in runs of 4 E bytes.
+//     ptab, and writes out[(j * F + f) * B + e] in runs of 4 E bytes; the
+//     picks go out the same way, picks[j * B + e].
 //
 // Shared memory, words: per env ncon (dist) at a stride rounded up to 4 mod
 // 32; per block 2 nsel E (slot and pair of every pick) and Ptot nst (ptab).
@@ -152,8 +154,8 @@ template <int NS>
 __global__ void __launch_bounds__(256) contact_select_kernel(
     const float* __restrict__ dist, const float* __restrict__ feat,
     const float* __restrict__ ptab_, const int* __restrict__ slot_pair,
-    float* __restrict__ out, int ncon, int Fd, int nsel, int nst, int Ptot,
-    int B, int logE) {
+    float* __restrict__ out, int* __restrict__ picks, int ncon, int Fd,
+    int nsel, int nst, int Ptot, int B, int logE) {
   extern __shared__ __align__(16) float smem[];
   const int E = 1 << logE;
   const Layout L(ncon, nsel, Ptot, nst, E);
@@ -199,6 +201,8 @@ __global__ void __launch_bounds__(256) contact_select_kernel(
     const size_t Bs = (size_t)B;
     const float* fsrc = feat + io.e0 + io.el;
     float* dst = out + io.e0 + io.el;
+    for (int jj = io.j; jj < nsel; jj += 32)
+      picks[(size_t)jj * Bs + io.e0 + io.el] = pick[jj * E + io.el];
     int j = io.j / F, f = io.j - j * F;  // the one division of the store
     const int rows = nsel * F;
     // kGather reads in flight before the first of their stores: a store
@@ -228,9 +232,9 @@ __global__ void __launch_bounds__(256) contact_select_kernel(
 // E envs per block (1, 2, 4 or 8), chosen by the caller.
 extern "C" int contact_select_launch(const float* dist, const float* feat,
                                      const float* ptab, const int* slot_pair,
-                                     float* out, int ncon, int Fd, int nsel,
-                                     int nst, int Ptot, int B, int E,
-                                     cudaStream_t stream) {
+                                     float* out, int* picks, int ncon, int Fd,
+                                     int nsel, int nst, int Ptot, int B,
+                                     int E, cudaStream_t stream) {
   const int logE = log2_envs(E);
   if (ncon < 1 || nsel < 1 || nsel > ncon || Fd < 1 || nst < 0 || Ptot < 1 ||
       B < 1 || logE < 0)
@@ -247,6 +251,7 @@ extern "C" int contact_select_launch(const float* dist, const float* feat,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(B + E - 1) / E, 32 * E, smem, stream>>>(
-      dist, feat, ptab, slot_pair, out, ncon, Fd, nsel, nst, Ptot, B, logE);
+      dist, feat, ptab, slot_pair, out, picks, ncon, Fd, nsel, nst, Ptot, B,
+      logE);
   return (int)cudaGetLastError();
 }

@@ -138,6 +138,12 @@ class AirbotCubePush(core.Env):
   def model(self) -> Model:
     return self._model
 
+  def bind_model(self, model: Model) -> None:
+    """Step with ``model`` from now on: one with the same topology whose
+    leaves may carry a gradient (env-parameter tuning binds a model with
+    the tuned friction to a copy of the env)."""
+    self._model = model
+
   @property
   def action_size(self) -> int:
     return 5

@@ -24,7 +24,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point and argument types of each library
 SIGNATURES = {
     'spd_solve': ('spd_solve_lanes_launch', [P, P, P, I, I, F, I, P]),
-    'contact_select': ('contact_select_launch', [P] * 5 + [I] * 7 + [P]),
+    'contact_select': ('contact_select_launch', [P] * 6 + [I] * 7 + [P]),
     'newton_pyr': ('newton_pyr_launch', [P] * 16 + [I] * 8 + [P]),
     'newton_generic': ('newton_generic_launch', [P] * 12 + [I] * 6 + [P]),
 }

@@ -18,7 +18,22 @@ the generic route too (what the JAX package does under
 
 Data arrives batch-major (B, …) and the chain runs with the batch in the
 trailing axis, as the JAX lanes route does; the outputs cross back once.
-Gradients through this chain come with a later slice.
+
+Gradients: when grad mode is on and an input requires grad (a state that
+depends on tuned parameters, a model leaf that does), the chain runs as
+``FusedRegion``, the counterpart of JAX's ``custom_vjp`` region
+(:221-320).  Its forward is the chain above with no graph kept.  Its
+backward recomputes the chain from the same inputs in generic rows, as
+JAX's ``fused_bwd`` differentiates its per-env ``chain`` (:113-173): the
+selection through K2 and its backward, the solve as ``solver.
+NewtonSolveIFT`` (K4 forward, the implicit-function-theorem backward with
+K1), the finite containment, and both SPD solves through ``linalg_kernels.
+spd_solve`` (K1 both ways).  So the gradient is that of the generic-row
+chain at the state the step started from, not a derivative of K3.  The
+recomputation runs through the lanes stages, the batched form of JAX's
+per-env ``kinematics.py`` and ``smooth.py`` (held to each other by
+``tests/test_fwd_fused.py``).  With no input requiring grad the chain runs
+as it did: no tensor is saved and the launches are the same.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from rsr_mjx_tpu_torch.physics import lanes_assembly as _lanes
 from rsr_mjx_tpu_torch.physics import lanes_kinematics as _lkin
 from rsr_mjx_tpu_torch.physics import lanes_smooth as _ls
 from rsr_mjx_tpu_torch.physics import linalg_kernels as _lk
+from rsr_mjx_tpu_torch.physics import solver as _solver
 from rsr_mjx_tpu_torch.physics import statics
 from rsr_mjx_tpu_torch.physics.types import Data, IntegratorType, Model
 
@@ -57,55 +73,52 @@ def use_basis(m: Model) -> bool:
               and int(_constraint._condims_static(m)[0]) >= 2)
 
 
-def forward_lanes(m: Model, d: Data, implicit: bool, basis: bool = True):
-  """Run the chain on batch ``d``; returns (d_filled, qacc_implicit or None).
-
-  ``d_filled`` carries the kinematics, smooth-dynamics and constraint
-  products, with qacc the constrained acceleration (what the sensors read);
-  ``qacc_implicit`` is the acceleration the integrator uses (only when
-  ``implicit``).  ``basis=False`` keeps a model with contact selection off
-  the basis route: its selected contacts become generic rows for K4."""
-  if not supported(m):
-    raise NotImplementedError(
-        'the fused step covers Euler and implicit integrators, models with '
-        'at least one constraint row, and joint actuators on hinge or slide '
-        'joints'
-    )
+def _chain(m: Model, kl, sl, lv, x0, h, implicit: bool, basis: bool,
+           grad: bool):
+  """kinematics → smooth dynamics → narrow phase → assembly → solve →
+  containment → implicit solve, all in lanes layout.  ``kl``, ``sl``,
+  ``lv`` are the stages' leaves (``sl`` and ``lv`` without the kinematics
+  fields, which come from ``kl`` here), x0 (nv, B) the warm start, h the
+  timestep.  ``grad`` sends the generic-row solve through
+  ``solver.NewtonSolveIFT``.  Returns the kinematics outputs, the smooth outputs,
+  (x, force, qfrc, dist (B, ncon)) and, when ``implicit``, qacc_implicit,
+  all lanes except dist."""
   lay = _constraint.layout_cached(m)
-  basis = basis and use_basis(m)
   kernel_iters = max(min(m.opt.iterations, 6), 1)
   ls_eff = max(min(m.opt.ls_iterations, 6), 1)
   nv, nu = m.nv, m.nu
-  B = d.qpos.shape[0]
-  T = lambda a: a.movedim(0, -1)  # batch-major → lanes
-  mv = lambda a: a.movedim(-1, 0)  # lanes → batch-major
+  B = kl.qpos.shape[-1]
 
-  qpos_l, qvel_l = T(d.qpos), T(d.qvel)
-  kout = _lkin.kinematics_lanes(m, _lkin.gather_kin(m, qpos_l))
-  sl = _ls.gather_smooth(m, qpos_l, qvel_l, T(d.ctrl), T(d.qfrc_applied),
-                         T(d.xfrc_applied), kout)
-  (qM_l, cvel_l, bias_l, pass_l, af_l, qact_l, qsm_l, qaccsm_l) = (
-      _ls.smooth_lanes(m, sl))
-  lv = _constraint.gather_leaves(m, qpos_l, qvel_l, kout.cdof,
-                                 kout.cdof_anchor, kout.geom_xpos,
-                                 kout.geom_xmat)
+  kout = _lkin.kinematics_lanes(m, kl)
+  sl = sl._replace(cdof=kout.cdof, cdof_anchor=kout.cdof_anchor,
+                   ximat=kout.ximat, xipos=kout.xipos,
+                   subtree_com=kout.subtree_com)
+  smooth = _ls.smooth_lanes(m, sl)
+  qM_l, qsm_l, qaccsm_l = smooth[0], smooth[6], smooth[7]
+  lv = lv._replace(cdof=kout.cdof, cdof_anchor=kout.cdof_anchor,
+                   geom_xpos=kout.geom_xpos, geom_xmat=kout.geom_xmat)
   qM_c, a0_c = qM_l.contiguous(), qaccsm_l.contiguous()
-  x0_c = T(d.qacc).contiguous()
   if basis:
     n_struct = lay.n_eq + lay.n_fri + lay.n_lim
     (J_s, aref_s, D_s, fl_s, dist_bm, U, arefU, D_c, naxes) = (
         _lanes.assemble_lanes(m, lv, basis=True))
     xt, force_l, qft_l = _lk.newton_lanes_pyr_t(
-        kernel_iters, ls_eff, lay.kind[:n_struct], qM_c, a0_c, x0_c,
+        kernel_iters, ls_eff, lay.kind[:n_struct], qM_c, a0_c, x0,
         J_s, aref_s, D_s, fl_s, U, arefU, D_c, naxes,
     )
   else:
     J_l, aref_l, D_l, fl_l, dist_bm = _lanes.assemble_lanes(
         m, lv, basis=False)
-    xt, force_l, qft_l = _lk._newton_lanes_core(
-        lay.kind, kernel_iters, ls_eff, qM_c, a0_c, x0_c, J_l, aref_l, D_l,
-        fl_l,
-    )
+    if grad:
+      x, f, q = _solver.NewtonSolveIFT.apply(
+          lay.kind, kernel_iters, ls_eff, qM_c.permute(2, 0, 1), a0_c.t(),
+          x0.t(), J_l.permute(2, 1, 0), aref_l.t(), D_l.t(), fl_l.t())
+      xt, force_l, qft_l = x.t(), f.t(), q.t()
+    else:
+      xt, force_l, qft_l = _lk._newton_lanes_core(
+          lay.kind, kernel_iters, ls_eff, qM_c, a0_c, x0, J_l, aref_l, D_l,
+          fl_l,
+      )
   # containment: an env whose solve went non-finite falls back to its
   # unconstrained acceleration (MuJoCo's mjWARN_BADQACC counterpart)
   ok = (torch.all(torch.isfinite(xt), dim=0)
@@ -113,30 +126,114 @@ def forward_lanes(m: Model, d: Data, implicit: bool, basis: bool = True):
   xt = torch.where(ok, xt, qaccsm_l)
   force_l = torch.where(ok, force_l, torch.zeros_like(force_l))
   qft_l = torch.where(ok, qft_l, torch.zeros_like(qft_l))
+  out = tuple(kout) + tuple(smooth) + (xt, force_l, qft_l, dist_bm)
+  if not implicit:
+    return out
 
-  qit = None
-  if implicit:
-    euler_nodamp = (m.opt.integrator == IntegratorType.EULER
-                    and bool(m.opt.disableflags & _DSBL_EULERDAMP))
-    if euler_nodamp:
-      qit = xt
-    else:
-      # M + h·(diag(damping) − momentᵀ·dgain·moment); for the joint
-      # transmissions admitted here the actuator term is diagonal:
-      # gear²·dgain at each actuated dof
-      diag = sl.dof_damping.expand(nv, B)
-      if m.opt.integrator == IntegratorType.IMPLICITFAST and nu:
-        dgain = sl.gainprm[:, 2] * sl.ctrl + sl.biasprm[:, 2]  # (nu, B)
-        gear0 = sl.gear[:, 0]
-        onehot_vu = statics.table(m, 'onehot_vu', lambda: _ls.onehot_vu(m),
-                                  diag.device, diag.dtype)
-        diag = diag - torch.tensordot(onehot_vu, gear0 * (dgain * gear0),
-                                      dims=1)
-      eye = torch.eye(nv, dtype=qM_l.dtype, device=qM_l.device)[:, :, None]
-      MhD = qM_l + eye * (m.opt.timestep * diag)[:, None, :]
-      qit = _lk.spd_solve_lanes(MhD.contiguous(),
-                                (qsm_l + qft_l).contiguous())
-    qit = mv(qit)
+  euler_nodamp = (m.opt.integrator == IntegratorType.EULER
+                  and bool(m.opt.disableflags & _DSBL_EULERDAMP))
+  if euler_nodamp:
+    return out + (xt.clone(),)
+  # M + h·(diag(damping) − momentᵀ·dgain·moment); for the joint
+  # transmissions admitted here the actuator term is diagonal:
+  # gear²·dgain at each actuated dof
+  diag = sl.dof_damping.expand(nv, B)
+  if m.opt.integrator == IntegratorType.IMPLICITFAST and nu:
+    dgain = sl.gainprm[:, 2] * sl.ctrl + sl.biasprm[:, 2]  # (nu, B)
+    gear0 = sl.gear[:, 0]
+    onehot_vu = statics.table(m, 'onehot_vu', lambda: _ls.onehot_vu(m),
+                              diag.device, diag.dtype)
+    diag = diag - torch.tensordot(onehot_vu, gear0 * (dgain * gear0),
+                                  dims=1)
+  eye = torch.eye(nv, dtype=qM_l.dtype, device=qM_l.device)[:, :, None]
+  MhD = qM_l + eye * (h * diag)[:, None, :]
+  qit = _lk.spd_solve(MhD.contiguous(), (qsm_l + qft_l).contiguous())
+  return out + (qit,)
+
+
+class FusedRegion(torch.autograd.Function):
+  """The chain with JAX's ``fused_bwd`` as its backward.  Arguments:
+  ``spec`` = (m, implicit, basis, len(kl), len(sl)), then the leaves of
+  kl, sl and lv and (x0, h), flat (None where a kinematics field is left
+  out)."""
+
+  @staticmethod
+  def forward(ctx, spec, *flat):
+    ctx.set_materialize_grads(False)
+    ctx.spec = spec
+    ctx.save_for_backward(*flat)
+    m, implicit, basis, _, _ = spec
+    return _chain(m, *_unflatten(spec, flat), implicit, basis, grad=False)
+
+  @staticmethod
+  def backward(ctx, *cts):
+    m, implicit, _, _, _ = ctx.spec
+    needs = ctx.needs_input_grad[1:]
+    inputs = [t.detach().requires_grad_(n) if t is not None else None
+              for t, n in zip(ctx.saved_tensors, needs)]
+    with torch.enable_grad():
+      outs = _chain(m, *_unflatten(ctx.spec, inputs), implicit, basis=False,
+                    grad=True)
+    pairs = [(o, c) for o, c in zip(outs, cts)
+             if c is not None and o.requires_grad]
+    if not pairs:  # no output that reached the loss depends on the inputs
+      return (None,) * (1 + len(needs))
+    wrt = [t for t, n in zip(inputs, needs) if n]
+    grads = iter(torch.autograd.grad(
+        [o for o, _ in pairs], wrt, [c for _, c in pairs],
+        allow_unused=True))
+    return (None,) + tuple(next(grads) if n else None for n in needs)
+
+
+def _unflatten(spec, flat):
+  _, _, _, n_kl, n_sl = spec
+  n_lv = len(_constraint.AssembleLeaves._fields)
+  kl = _lkin.KinLeaves(*flat[:n_kl])
+  sl = _ls.SmoothLeaves(*flat[n_kl : n_kl + n_sl])
+  lv = _constraint.AssembleLeaves(*flat[n_kl + n_sl : n_kl + n_sl + n_lv])
+  x0, h = flat[n_kl + n_sl + n_lv :]
+  return kl, sl, lv, x0, h
+
+
+def forward_lanes(m: Model, d: Data, implicit: bool, basis: bool = True):
+  """Run the chain on batch ``d``; returns (d_filled, qacc_implicit or None).
+
+  ``d_filled`` carries the kinematics, smooth-dynamics and constraint
+  products, with qacc the constrained acceleration (what the sensors read);
+  ``qacc_implicit`` is the acceleration the integrator uses (only when
+  ``implicit``).  ``basis=False`` keeps a model with contact selection off
+  the basis route: its selected contacts become generic rows for K4.  The
+  chain runs as ``FusedRegion`` when grad mode is on and one of its inputs
+  requires grad; d.qacc, the warm start, never carries a gradient (JAX's
+  stop_gradient)."""
+  if not supported(m):
+    raise NotImplementedError(
+        'the fused step covers Euler and implicit integrators, models with '
+        'at least one constraint row, and joint actuators on hinge or slide '
+        'joints'
+    )
+  basis = basis and use_basis(m)
+  T = lambda a: a.movedim(0, -1)  # batch-major → lanes
+  mv = lambda a: a.movedim(-1, 0)  # lanes → batch-major
+
+  qpos_l, qvel_l = T(d.qpos), T(d.qvel)
+  kl = _lkin.gather_kin(m, qpos_l)
+  sl = _ls.gather_smooth(m, qpos_l, qvel_l, T(d.ctrl), T(d.qfrc_applied),
+                         T(d.xfrc_applied))
+  lv = _constraint.gather_leaves(m, qpos_l, qvel_l, None, None, None, None)
+  x0 = T(d.qacc).detach().contiguous()
+  flat = tuple(kl) + tuple(sl) + tuple(lv) + (x0, m.opt.timestep)
+  if torch.is_grad_enabled() and any(
+      t is not None and t.requires_grad for t in flat):
+    spec = (m, implicit, basis, len(kl), len(sl))
+    out = FusedRegion.apply(spec, *flat)
+  else:
+    out = _chain(m, kl, sl, lv, x0, m.opt.timestep, implicit, basis,
+                 grad=False)
+  kout = _lkin.KinOut(*out[:12])
+  (qM_l, cvel_l, bias_l, pass_l, af_l, qact_l, qsm_l, qaccsm_l) = out[12:20]
+  xt, force_l, qft_l, dist_bm = out[20:24]
+  qit = mv(out[24]) if implicit else None
 
   d = d.replace(
       xpos=mv(kout.xpos), xquat=mv(kout.xquat), xmat=mv(kout.xmat),

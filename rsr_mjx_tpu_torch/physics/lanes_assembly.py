@@ -160,8 +160,9 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
                            lv.con_invweight[:, None]], dim=1)  # (ncon, 13)
       ptab = torch.cat([feat_st[slot0], dmask_all[slot0]], dim=1).contiguous()
       pair_struct = tuple((P, k, off) for _, P, k, off in C.pair_groups(m))
-      sel = _lk.contact_select_lanes(pair_struct, nsel, dist_l.contiguous(),
-                                     feat_dyn, ptab)  # (nsel, 13+13+nv, B)
+      sel, _ = _lk.contact_select_lanes(
+          pair_struct, nsel, dist_l.contiguous(), feat_dyn,
+          ptab)  # (nsel, 13+13+nv, B)
       c_dist = sel[:, 0]  # (nc, B)
       c_pos = sel[:, 1:4]  # (nc, 3, B)
       c_frame = sel[:, 4:13]  # (nc, 9, B)

@@ -85,13 +85,15 @@ class SmoothLeaves(NamedTuple):
 
 
 def gather_smooth(m: Model, qpos, qvel, ctrl, qfrc_applied, xfrc_applied,
-                  kout) -> SmoothLeaves:
+                  kout=None) -> SmoothLeaves:
   """Lanes state (…, B) and kinematics outputs plus the model leaves with
-  a trailing axis of 1."""
+  a trailing axis of 1; with no ``kout`` the five kinematics fields are
+  None, to be filled in later (the fused region's inputs)."""
   e = lambda x: x[..., None]
+  kin = ((kout.cdof, kout.cdof_anchor, kout.ximat, kout.xipos,
+          kout.subtree_com) if kout is not None else (None,) * 5)
   return SmoothLeaves(
-      qpos, qvel, ctrl, qfrc_applied, xfrc_applied,
-      kout.cdof, kout.cdof_anchor, kout.ximat, kout.xipos, kout.subtree_com,
+      qpos, qvel, ctrl, qfrc_applied, xfrc_applied, *kin,
       e(m.body_mass), e(m.body_inertia), e(m.dof_armature),
       e(m.dof_damping), e(m.jnt_stiffness), e(m.qpos0), e(m.opt.gravity),
       e(m.actuator_gainprm), e(m.actuator_biasprm), e(m.actuator_gear),
@@ -299,13 +301,15 @@ def smooth_lanes(m: Model, sl: SmoothLeaves):
     force = force.expand(nu, B)
     qfrc_actuator = torch.tensordot(const('onehot_vu', lambda: onehot_vu(m)),
                                     gear0 * force, dims=1)
-    jl = m.jnt_actfrclimited
-    for ji in range(m.njnt):
-      if jl[ji]:
-        vadr = int(m.jnt_dofadr[ji])
-        lo, hi = (float(x) for x in np.asarray(m.jnt_actfrcrange[ji],
-                                               np.float32))
-        qfrc_actuator[vadr] = torch.clamp(qfrc_actuator[vadr], lo, hi)
+    lim_j = np.nonzero(m.jnt_actfrclimited)[0]
+    if len(lim_j):
+      # out of place: the clamp's backward reads the rows it clamps
+      lim_v = const('actfrc_dofs', lambda: m.jnt_dofadr[lim_j], torch.long)
+      rng = const('actfrc_range', lambda: np.asarray(
+          m.jnt_actfrcrange[lim_j], np.float32))  # (L, 2)
+      qfrc_actuator = qfrc_actuator.index_put(
+          (lim_v,), torch.clamp(qfrc_actuator[lim_v], rng[:, :1],
+                                rng[:, 1:]))
     actuator_force = force
   else:
     actuator_force = torch.zeros((0, B), dtype=dtype, device=dev)
@@ -326,7 +330,7 @@ def smooth_lanes(m: Model, sl: SmoothLeaves):
 
   qfrc_smooth = (qfrc_passive - qfrc_bias + qfrc_actuator
                  + sl.qfrc_applied.expand(nv, B) + qx)
-  qacc_smooth = _lk.spd_solve_lanes(qM.contiguous(), qfrc_smooth.contiguous())
+  qacc_smooth = _lk.spd_solve(qM.contiguous(), qfrc_smooth.contiguous())
   return (
       qM, cvel, qfrc_bias, qfrc_passive, actuator_force, qfrc_actuator,
       qfrc_smooth, qacc_smooth,

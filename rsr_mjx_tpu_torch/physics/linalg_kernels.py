@@ -9,6 +9,14 @@ kernels these replace:
   K3 ``newton_lanes_pyr_t``   ← ``_newton_kernel_pyr`` (:500-828)
   K4 ``_newton_lanes_core``   ← ``_newton_kernel`` (:247-358, :878-974)
 
+Two of them carry gradients, as their JAX counterparts do: ``spd_solve``
+(``SpdSolve``, JAX's ``spd_solve`` custom VJP, :145-195) solves with K1
+and takes one more K1 solve backward, and ``contact_select_lanes`` scatters
+the cotangents of its picked rows back to the slots and pair rows it
+gathered (the transpose of JAX's one-hot gather).  ``newton_solve_batched``
+is the batch-major entry to K4 that the implicit-function-theorem solve of
+``solver`` calls.
+
 Each public function keeps the JAX lanes layout (batch in the trailing
 axis) and argument order, so the tests compare like with like.  Dispatch is
 by device and nothing else: a CPU tensor goes through the plain version, a
@@ -253,6 +261,33 @@ def spd_solve_lanes(At: torch.Tensor, bt: torch.Tensor,
   return x
 
 
+class SpdSolve(torch.autograd.Function):
+  """x = A⁻¹ b through K1, with JAX's ``_spd_bwd`` (linalg_kernels.py
+  :189-195) as backward: w = A⁻¹ g by K1 again (A symmetric), Ā = −w xᵀ,
+  b̄ = w.  Lanes layout: A (n, n, B), b (n, B)."""
+
+  @staticmethod
+  def forward(ctx, At, bt):
+    x = spd_solve_lanes(At, bt)
+    ctx.save_for_backward(At, x)
+    return x
+
+  @staticmethod
+  def backward(ctx, g):
+    At, x = ctx.saved_tensors
+    w = spd_solve_lanes(At, g.contiguous())
+    return -w[:, None, :] * x[None, :, :], w
+
+
+def spd_solve(At: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+  """``spd_solve_lanes`` that carries gradients: through ``SpdSolve`` when
+  grad mode is on and A or b requires grad, else the wrapper itself (no
+  tensor saved, the same launches)."""
+  if torch.is_grad_enabled() and (At.requires_grad or bt.requires_grad):
+    return SpdSolve.apply(At, bt)
+  return spd_solve_lanes(At, bt)
+
+
 # ---------------------------------------------------------------------------
 # K2 — top-nsel contact selection with feature gather.
 #
@@ -268,7 +303,8 @@ def spd_solve_lanes(At: torch.Tensor, bt: torch.Tensor,
 # env makes the nsel picks (lane l owns slots l, l + 32, … as ordered keys,
 # in registers up to 512 slots; a pick is two warp-wide minima, no block
 # barrier); then the whole block gathers and stores with the env fastest,
-# the static rows from a copy of the pair table in shared memory.
+# the static rows from a copy of the pair table in shared memory, and writes
+# the picked slots (nsel, B), which the backward scatters through.
 # ---------------------------------------------------------------------------
 
 
@@ -305,9 +341,10 @@ def check_contact_select_fits(ncon: int, nsel: int, Ptot: int,
 
 
 def contact_select_plain(pair_struct: tuple, nsel: int, dist_l, feat_dyn,
-                         pair_table) -> torch.Tensor:
+                         pair_table):
   """Plain version of K2.  dist_l (ncon, B), feat_dyn (ncon, Fd, B),
-  pair_table (Ptot, nst) → sel (nsel, Fd + nst, B)."""
+  pair_table (Ptot, nst) → (sel (nsel, Fd + nst, B), picks (nsel, B)
+  int32)."""
   ncon, Fd, B = feat_dyn.shape
   # ascending dist, lowest index on ties: a stable sort keeps index order
   idx = torch.sort(dist_l, dim=0, stable=True).indices[:nsel]  # (nsel, B)
@@ -316,18 +353,73 @@ def contact_select_plain(pair_struct: tuple, nsel: int, dist_l, feat_dyn,
   )  # (nsel, Fd, B)
   pair = _slot_pair(pair_struct, idx.device).long()[idx]  # (nsel, B)
   st = pair_table[pair].permute(0, 2, 1)  # (nsel, nst, B)
-  return torch.cat([dyn, st], dim=1)
+  return torch.cat([dyn, st], dim=1), idx.to(torch.int32)
+
+
+def contact_select_backward(pair_struct: tuple, picks, g_sel, ncon: int,
+                            Fd: int, Ptot: int):
+  """The transpose of K2's gather: the cotangent g_sel (nsel, Fd + nst, B)
+  of the picked rows back to the slots of feat_dyn (ncon, Fd, B) and to the
+  pair rows of pair_table (Ptot, nst), by ``scatter_add`` and
+  ``index_add`` (the transpose of JAX's one-hot matmul, which XLA computes
+  there too).  A slot is picked at most once per env; a pair row collects
+  from every env."""
+  nsel, F, B = g_sel.shape
+  idx = picks.long()
+  g_feat = torch.zeros((ncon, Fd, B), dtype=g_sel.dtype, device=g_sel.device)
+  g_feat.scatter_add_(0, idx[:, None, :].expand(nsel, Fd, B), g_sel[:, :Fd])
+  pair = _slot_pair(pair_struct, idx.device).long()[idx]  # (nsel, B)
+  g_tab = torch.zeros((Ptot, F - Fd), dtype=g_sel.dtype, device=g_sel.device)
+  g_tab.index_add_(0, pair.reshape(-1),
+                   g_sel[:, Fd:].permute(0, 2, 1).reshape(nsel * B, F - Fd))
+  return g_feat, g_tab
+
+
+class ContactSelect(torch.autograd.Function):
+  """K2 (or its plain version on the CPU) forward, the picks saved;
+  ``contact_select_backward`` backward.  The picks are an output that
+  carries no gradient."""
+
+  @staticmethod
+  def forward(ctx, pair_struct, nsel, dist_l, feat_dyn, pair_table):
+    sel, picks = _contact_select(pair_struct, nsel, dist_l, feat_dyn,
+                                 pair_table)
+    ctx.save_for_backward(picks)
+    ctx.pair_struct = pair_struct
+    ctx.sizes = (feat_dyn.shape[0], feat_dyn.shape[1], pair_table.shape[0])
+    ctx.mark_non_differentiable(picks)
+    return sel, picks
+
+  @staticmethod
+  def backward(ctx, g_sel, _):
+    (picks,) = ctx.saved_tensors
+    g_feat, g_tab = contact_select_backward(ctx.pair_struct, picks,
+                                            g_sel.contiguous(), *ctx.sizes)
+    return None, None, None, g_feat, g_tab
 
 
 def contact_select_lanes(pair_struct: tuple, nsel: int, dist_l: torch.Tensor,
-                         feat_dyn: torch.Tensor,
-                         pair_table: torch.Tensor) -> torch.Tensor:
+                         feat_dyn: torch.Tensor, pair_table: torch.Tensor):
   """Top-nsel contact selection and feature gather.
 
   dist_l (ncon, B); feat_dyn (ncon, Fd, B) per-slot dynamic features;
   pair_table (Ptot, nst) static per-pair columns; pair_struct = static
   ((P, k, off), ...) slot layout of the pair groups.  Returns
-  sel (nsel, Fd + nst, B): row j = features of the j-th nearest slot."""
+  (sel (nsel, Fd + nst, B): row j = features of the j-th nearest slot,
+  picks (nsel, B) int32: that slot).
+
+  With grad mode on and feat_dyn or pair_table requiring grad the call goes
+  through ``ContactSelect``, whose backward is ``contact_select_backward``;
+  dist_l gets no gradient (the order of the picks has none, and the picked
+  dists travel in feat_dyn)."""
+  if torch.is_grad_enabled() and (feat_dyn.requires_grad
+                                  or pair_table.requires_grad):
+    return ContactSelect.apply(pair_struct, nsel, dist_l, feat_dyn,
+                               pair_table)
+  return _contact_select(pair_struct, nsel, dist_l, feat_dyn, pair_table)
+
+
+def _contact_select(pair_struct, nsel, dist_l, feat_dyn, pair_table):
   ncon, Fd, B = feat_dyn.shape
   dev = dist_l.device
   Ptot, nst = pair_table.shape
@@ -347,11 +439,12 @@ def contact_select_lanes(pair_struct: tuple, nsel: int, dist_l: torch.Tensor,
       _sm_count(dev))
   slot_pair = _slot_pair(pair_struct, dev)
   out = torch.empty((nsel, Fd + nst, B), dtype=torch.float32, device=dev)
+  picks = torch.empty((nsel, B), dtype=torch.int32, device=dev)
   LAUNCHES['contact_select_lanes'] += 1
   _launch('contact_select', dist_l.data_ptr(), feat_dyn.data_ptr(),
           pair_table.data_ptr(), slot_pair.data_ptr(), out.data_ptr(),
-          ncon, Fd, nsel, nst, Ptot, B, E, _stream())
-  return out
+          picks.data_ptr(), ncon, Fd, nsel, nst, Ptot, B, E, _stream())
+  return out, picks
 
 
 # ---------------------------------------------------------------------------
@@ -756,3 +849,29 @@ def _newton_lanes_core(kind: np.ndarray, iterations: int, ls_iterations: int,
       Mt, a0t, x0t, Jt, areft, Dt, flt, ones_m, fric_m, x, force, qf)),
           nv, R, int(iterations), int(ls_iterations), B, E, _stream())
   return x, force, qf
+
+
+def newton_solve_lanes(kind: np.ndarray, iterations: int, ls_iterations: int,
+                       M, a0, x0, J_l, aref_l, D_l, floss_l):
+  """K4 with batch-major dof arrays and a lanes-layout constraint system:
+  M (B, nv, nv), a0/x0 (B, nv), J_l (nv, R0, B), aref_l/D_l/floss_l
+  (R0, B).  Returns (x, force, qfrc) batch-major.  Counterpart of JAX's
+  ``newton_solve_lanes`` (linalg_kernels.py:977); where the JAX solver asks
+  ``newton_kernel_fits`` this raises (``check_newton_generic_fits``)."""
+  nv, R0, _ = J_l.shape
+  check_newton_generic_fits(nv, R0)
+  c = lambda a: a.contiguous()
+  xt, ft, qft = _newton_lanes_core(
+      kind, iterations, ls_iterations, c(M.permute(1, 2, 0)), c(a0.t()),
+      c(x0.t()), c(J_l), c(aref_l), c(D_l), c(floss_l))
+  return xt.t(), ft.t(), qft.t()
+
+
+def newton_solve_batched(kind: np.ndarray, iterations: int,
+                         ls_iterations: int, M, a0, x0, J, aref, D, floss):
+  """K4 on batch-major systems: M (B, nv, nv), a0/x0 (B, nv), J (B, R0, nv),
+  aref/D/floss (B, R0), static row kinds ``kind`` (R0,).  Returns (x, force,
+  qfrc) batch-major.  Counterpart of JAX's ``newton_solve_batched``
+  (linalg_kernels.py:1009), which the solve of ``solver`` calls."""
+  return newton_solve_lanes(kind, iterations, ls_iterations, M, a0, x0,
+                            J.permute(2, 1, 0), aref.t(), D.t(), floss.t())

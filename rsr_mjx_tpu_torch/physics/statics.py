@@ -6,9 +6,10 @@ pair slots, row kinds.  Copying one to the device each substep is a copy
 from pageable host memory on the hot path.  ``table`` builds and copies
 each table at its first use and hands the same tensor back afterwards.
 
-The cache lives on the ``Model`` object, so a model made by
-``dataclasses.replace`` starts with an empty one.  The tensors are shared:
-no caller writes into them.
+The cache lives on the ``Model`` object.  ``Model.replace`` of numeric
+leaves alone (a tuned friction, a bound model) hands the cache on; any
+other copy starts with an empty one.  The tensors are shared: no caller
+writes into them.
 """
 
 from __future__ import annotations

@@ -178,7 +178,17 @@ class Model:
     return self.qpos0.device
 
   def replace(self, **kw) -> 'Model':
-    return dataclasses.replace(self, **kw)
+    """A copy with the given fields replaced.  Numeric leaves are named
+    flat (``m.replace(geom_friction=f)``, as on the JAX Model); a copy that
+    changes numeric leaves only keeps this model's device tables
+    (``statics``), which depend on the topology alone."""
+    numeric = {k: kw.pop(k) for k in list(kw) if k in NUMERIC_FIELDS}
+    if numeric:
+      kw['numeric'] = {**self.numeric, **numeric}
+    out = dataclasses.replace(self, **kw)
+    if set(kw) <= {'numeric'} and '_device_tables' in self.__dict__:
+      out.__dict__['_device_tables'] = self.__dict__['_device_tables']
+    return out
 
   def to(self, device, dtype: Optional[torch.dtype] = None) -> 'Model':
     """Copy with every numeric leaf on ``device`` (and in ``dtype``: float64

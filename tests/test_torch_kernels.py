@@ -13,6 +13,7 @@ last test does that here too when a card is present.
 import os
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,11 +72,17 @@ def test_contact_select_matches_jax_exactly(ties):
   pair_struct = ((PAIRS, K, 0),)
   sj = np.asarray(jlk.contact_select_lanes(
       pair_struct, NSEL, jnp.asarray(dist), jnp.asarray(feat), table))
-  sp = plk.contact_select_lanes(
+  sp, picks = plk.contact_select_lanes(
       pair_struct, NSEL, torch.from_numpy(dist), torch.from_numpy(feat),
-      torch.from_numpy(table)).numpy()
+      torch.from_numpy(table))
+  sp = sp.numpy()
   assert sp.shape == (NSEL, 13 + 13 + NV, B)
   np.testing.assert_array_equal(sp, sj)
+  # the picks are lax.top_k's indices, in its order (+ 0.0 turns the
+  # rounding's -0 into +0: top_k orders the two, the kernels do not)
+  _, top = jax.lax.top_k(-(jnp.asarray(dist).T + 0.0), NSEL)
+  assert picks.dtype == torch.int32
+  np.testing.assert_array_equal(picks.numpy(), np.asarray(top).T)
   if ties:  # the four tied minima come first, by slot index
     np.testing.assert_array_equal(sp[:4, :13], feat[[7, 40, 41, 300]])
 
@@ -448,8 +455,9 @@ def test_kernels_match_plain_on_card():
   dist, feat, table = _selection_inputs(rng, True)
   args = (((PAIRS, K, 0),), NSEL, torch.from_numpy(dist).to(dev),
           torch.from_numpy(feat).to(dev), torch.from_numpy(table).to(dev))
-  assert torch.equal(plk.contact_select_lanes(*args),
-                     plk.contact_select_plain(*args))
+  for k, p in zip(plk.contact_select_lanes(*args),
+                  plk.contact_select_plain(*args)):
+    assert torch.equal(k, p)
   inp = _newton_inputs(rng)
   names = ('Mt', 'a0t', 'x0t', 'Js', 'arefs', 'Ds', 'fls', 'U', 'arefU', 'Dc')
   a = [torch.from_numpy(inp[k]).to(dev) for k in names]
@@ -492,5 +500,6 @@ def test_kernels_match_plain_on_card():
     args = (((pairs, k, 0),), NSEL,
             torch.from_numpy(dist.astype(np.float32)).to(dev),
             torch.from_numpy(feat).to(dev), torch.from_numpy(table).to(dev))
-    assert torch.equal(plk.contact_select_lanes(*args),
-                       plk.contact_select_plain(*args))
+    for k, p in zip(plk.contact_select_lanes(*args),
+                    plk.contact_select_plain(*args)):
+      assert torch.equal(k, p)

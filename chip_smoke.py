@@ -8,15 +8,16 @@ only the times of K1 and K2 through the public wrappers of the port found
 under DIR, a directory inside this repository that holds another commit of
 it (this tree when DIR is left out): the way to time a parent's kernels and
 this tree's within one call on one card (see wrapper_times).  It imports
-the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Six
-paths are driven.  Two serve a trained policy run deterministically, each
+the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Ten
+paths are driven.  Three serve a trained policy run deterministically, each
 through ``envs.load`` → ``wrap_for_training`` → ``env.step``: cube-push
-(``AirbotCubePushTrain``, kernels K1, K2, K3) and the Go2 joystick
-(``Go2JoystickFlatTerrain``, kernels K1, K4).  Three train: PPO on
-cube-push through ``ppo.train`` at the tuned width (K1, K2, K3 in its
-rollouts), RSR policy training on cube-push through
+(``AirbotCubePushTrain``, kernels K1, K2, K3) with a PPO and a SAC policy,
+and the Go2 joystick (``Go2JoystickFlatTerrain``, kernels K1, K4).  Six
+train: PPO on cube-push through ``ppo.train`` at the tuned width (K1, K2,
+K3 in its rollouts), RSR policy training on cube-push through
 ``rsr.pipeline.policy_params_training`` with the penalty on (K1, K2, K3),
-and PPO on the Go2 joystick at its tuned table (K1, K4).  One tunes the
+PPO on the Go2 joystick at its tuned table (K1, K4), and the same three
+with SAC (``sac.train``, its replay ring on the card).  One tunes the
 cube's friction through ``rsr.pipeline.env_params_tuning`` with gradients
 through the step (K1, K2, K3 forward; K1, K2, K4 in the recomputation and
 the backward).  Phases; any failure exits non-zero before the result line
@@ -73,8 +74,8 @@ is printed:
               host time of each stage.
   4. training ``ppo.train`` with ``configs.ppo_config('AirbotCubePushTrain')``
               (1024 envs, batch 256 x 32 minibatches, unroll 10, 8 updates
-              per batch, policy 32 x 4, value 256 x 5) for two training
-              steps (163840 env-steps) in one epoch; training env-steps/s,
+              per batch, policy 32 x 4, value 256 x 5) for one training
+              step (81920 env-steps) in one epoch; training env-steps/s,
               rollout ms per control step and SGD ms per minibatch (CUDA
               events, no synchronise), each step's loss metrics; fails on a
               non-finite metric, on env steps or a normalizer count other
@@ -129,9 +130,37 @@ is printed:
               recomputation's inputs (nv 20, R0 181, 6 x 6, B 30) at every
               E that fits and K1 on the IFT systems under phase 2's
               criteria, NaN-triangle check included, with their times and
-              bounds; K2's picks equal the plain version's and its backward
-              the plain gather's.
-  8. result   one JSON line of the kernels (launches of all six paths),
+              bounds; K2 and K3 on the last Adam step's forward (B 30)
+              under phase 2's criteria, with their times; K2's picks equal
+              the plain version's and its backward the plain gather's.
+  8. sac      three SAC runs at full width, each SAC_TRAIN_STEPS (16)
+              training steps after its replay prefill, in one epoch with
+              no evaluation inside: ``sac.train`` with
+              ``configs.sac_config('AirbotCubePushTrain')`` (1024 envs,
+              batch 256, 256 x 256 policy and twin critics, ring of
+              1 000 000, prefill 98 actor steps); ``rsr.pipeline.
+              policy_params_training(algorithm='sac')`` at the RSR CLI's
+              table (512 envs, batch 128, 32 x 4, ring 200 000, prefill 20,
+              bandwidth 2.0); ``sac.train`` on the Go2 joystick's 'state'
+              entry (SelectObservationWrapper) at its SAC table (4096
+              envs, batch 512, 512-256-128, ring 1 000 000, prefill 49).
+              Each: prefill seconds, training/sps, actor-step and SGD-step
+              ms (CUDA events, no synchronise), the loss metrics, the
+              ring's size, position and bytes on the card; fails on a
+              non-finite metric, on env steps, normalizer count or ring
+              size other than the actor steps give, on parameters or log α
+              left unchanged, on target critics other than the τ update of
+              the last step, on launch counts other than the substeps give
+              (see sac_checks).  The kernels of the last training substep
+              (K1, K2, K3 at B 1024 and 512; K1, K4 at B 4096) under phase
+              2's criteria at every E; the first SGD step replayed on the
+              card and on the CPU in fp32 and float64 (sac_sgd_check; in
+              the RSR run also the penalty's own gradient); one SGD step
+              under the profiler; the evaluator after the cube-push and Go2
+              runs.  Then logs/cube_sac_500k_r5's policy served through
+              ``sac_networks.make_policy`` on cube-push, B 2048, 20 control
+              steps, as phase 3's rollout.
+  9. result   one JSON line of the kernels (launches of all ten paths),
               the card's name and power limit, and last the line
               {"ok": true, "device": {...}}.
 """
@@ -164,7 +193,9 @@ GO2_MAX_DONE_SHARE = 0.05
 SEED = 0
 DEV = 'cuda'  # every phase runs on the card
 REF_ENVS = 256  # envs of the batch run also on the CPU, fp32 and float64
-TRAIN_STEPS = 2  # PPO training steps of the tuned cube-push config
+# PPO training steps of the tuned cube-push config (81920 env-steps each;
+# cut from 2 to keep the script within 12 minutes once phase 8 came)
+TRAIN_STEPS = 1
 EVAL_ENVS = 128  # the evaluator's envs after training (ppo.train's default)
 EVAL_STEPS = 25  # control steps of its episode, cut from 1200 (Go2: 1000)
 RSR_ENV = 'AirbotCubePush'  # the RSR CLI's default env (the rsr variant)
@@ -1193,7 +1224,7 @@ def check_finite(torch, tensors):
       raise SystemExit(f'{name} is not finite')
 
 
-def rollout_cube(torch, lk, env0, env, policy, state, card):
+def rollout_cube(torch, lk, env0, env, policy, state, card, tag='slice'):
   """The cube-push path: STEPS control steps at B = ENVS."""
   B, n_sub = ENVS, env0.n_substeps
   zero_launches(lk)
@@ -1215,7 +1246,7 @@ def rollout_cube(torch, lk, env0, env, policy, state, card):
   rew = torch.stack(rewards)
   check_finite(torch, (('obs', state.obs, (B, 23)), ('reward', rew, None),
                        ('qpos', state.data.qpos, (B, env0.model.nq))))
-  log(f'slice: {ENV} B={B}, {STEPS} control steps = {substeps} '
+  log(f'{tag}: {ENV} B={B}, {STEPS} control steps = {substeps} '
       f'substeps in {wall:.3f} s: {B * STEPS / wall:.1f} env-steps/s, '
       f'{wall / substeps * 1e3:.3f} ms/substep; mean reward per step '
       f'{rew.mean().item():.4f}; guard trips {int(nonfinite.item())}; '
@@ -1349,13 +1380,12 @@ def sim2real_grads(torch, port, rec, dev, dtype):
   return {k: g.to('cpu', torch.float64) for k, g in zip(params, grads)}
 
 
-def profile_sgd(torch, rec, port, step_ms, tag='train') -> None:
-  """One minibatch step on the card under torch.profiler: device busy
-  time, its share of ``step_ms`` (the measured ms per minibatch in
-  training), device kernels launched."""
+def profile_sgd(torch, run, step_ms, tag='train') -> None:
+  """One SGD step (``run()``, a recorded step replayed on the card) under
+  torch.profiler: device busy time, its share of ``step_ms`` (the measured
+  ms per step in training), device kernels launched."""
   from torch.profiler import ProfilerActivity, profile
 
-  _, run = recorded_sgd_step(torch, port, rec, DEV, torch.float32)
   run()
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
@@ -1367,9 +1397,9 @@ def profile_sgd(torch, rec, port, step_ms, tag='train') -> None:
   kernels = [e for e in prof.key_averages()
              if e.device_type != torch.autograd.DeviceType.CPU]
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-  log(f'{tag} SGD profile: 1 minibatch step, device busy {busy_ms:.3f} ms, '
+  log(f'{tag} SGD profile: 1 step, device busy {busy_ms:.3f} ms, '
       f'idle share {1 - busy_ms / step_ms:.4f} of the {step_ms:.3f} ms per '
-      f'minibatch in training; under the profiler wall {wall_ms:.3f} ms; '
+      f'step in training; under the profiler wall {wall_ms:.3f} ms; '
       f'{sum(e.count for e in kernels)} device kernels')
 
 
@@ -1637,7 +1667,9 @@ def train_phase(torch, port, lk, card):
   cube_kernel_rows(torch, lk, r.calls, cfg.num_envs, 'training')
   del r.calls
   sgd_check(torch, port, r.rec)
-  profile_sgd(torch, r.rec, port, sorted(r.sgd_ms)[len(r.sgd_ms) // 2])
+  profile_sgd(torch, recorded_sgd_step(torch, port, r.rec, DEV,
+                                       torch.float32)[1],
+              sorted(r.sgd_ms)[len(r.sgd_ms) // 2])
   run_eval(torch, port, env0, make_policy, (norm, net), cfg.episode_length,
            'train')
   return r.launches
@@ -1742,8 +1774,9 @@ def go2_train_phase(torch, port, lk, card):
               torch, lk, tag, k4_args, [(k4_args[1], k4_args[2])])})
   del r.calls, k4_args
   sgd_check(torch, port, r.rec, tag='go2 train')
-  profile_sgd(torch, r.rec, port, sorted(r.sgd_ms)[len(r.sgd_ms) // 2],
-              tag='go2 train')
+  profile_sgd(torch, recorded_sgd_step(torch, port, r.rec, DEV,
+                                       torch.float32)[1],
+              sorted(r.sgd_ms)[len(r.sgd_ms) // 2], tag='go2 train')
   run_eval(torch, port, env0, make_policy, (norm, net), cfg.episode_length,
            'go2 train')
   return r.launches
@@ -2090,11 +2123,434 @@ def tuning_phase(torch, port, lk, card):
       tag = f'tuning IFT systems, n {ift[-1][1].shape[0]}, B {B}'
       rows[f'K1 spd_solve_lanes ({tag})'] = k1_row(torch, lk, tag, ift)
       k2_grad_check(torch, lk, calls['contact_select_lanes'][-1])
-      del calls, k4, ift
+      # K2 (forward and recomputation) and K3 (forward) at the tuning batch
+      rows[f'K2 contact_select_lanes (tuning, B {B})'] = k2_row(
+          torch, lk, calls['contact_select_lanes'][-1], tag='tuning')
+      k3 = calls['newton_lanes_pyr_t'][-1]
+      tag = f'tuning forward, B {B}'
+      rows[f'K3 newton_lanes_pyr_t ({tag})'] = k3_row(torch, lk, tag, k3)
+      e_sweep(torch, lk, f'K3 {tag}', lambda: lk.newton_lanes_pyr_t(*k3),
+              'newton_pyr_kernel')
+      del calls, k4, ift, k3
   env_g = port.envs.load(RSR_ENV, device=DEV)
   tuning_reference(torch, port, env_g, TUNE_RUNS[0], card)
   profile_tuning_step(torch, port, lk, TUNE_RUNS[0], demo_step_s)
   report(rows)
+  return launches
+
+
+# -- phase 8: SAC ------------------------------------------------------------
+
+SAC_TRAIN_STEPS = 16  # SAC training steps of each run (one epoch)
+SAC_PARAMS = os.path.join(ROOT, 'logs', 'cube_sac_500k_r5', 'final_params.pkl')
+# the RSR CLI's SAC table (scripts/rsr_policy_training.py): 512 envs, batch
+# 128, replay 10 000 / 200 000, networks 32 x 4
+RSR_SAC_SIZES = dict(num_envs=512, batch_size=128, min_replay_size=10_000,
+                     max_replay_size=200_000)
+
+
+def sac_transition_floats(obs_size, action_size):
+  """Floats of one stored transition: obs, action, reward, discount, next
+  obs, truncation."""
+  return 2 * obs_size + action_size + 3
+
+
+def run_sac(torch, port, lk, train):
+  """Run ``train(progress_fn)`` (``sac.train`` directly or through the RSR
+  pipeline) instrumented: each actor step and each SGD step timed by CUDA
+  events recorded at its boundaries, with no synchronise; the first SGD
+  step's inputs recorded (a copy of the networks, target critics and log α,
+  the normalizer, the batch, the three draws, ``make_losses``' arguments);
+  the target critics copied before every SGD step; the replay ring's
+  bytes (``torch.cuda.memory_allocated`` around its allocation) and last
+  state; the kernels' launches zeroed just before and the wrappers keeping
+  the arguments of their last 2 calls.  Returns a namespace."""
+  import copy
+  import types
+
+  r = types.SimpleNamespace(actor_ev=[], sgd_ev=[], progress=[], metrics=None,
+                            rec=None, start=torch.cuda.Event(
+                                enable_timing=True))
+  sac, rb, losses_mod = port.sac, port.replay_buffer, port.sac_losses
+  real = dict(actor=port.acting.actor_step, sgd=sac.sgd_step, init=rb.init,
+              insert=rb.insert, losses=losses_mod.make_losses)
+
+  def progress_fn(step, metrics):
+    r.progress.append(step)
+    r.metrics = metrics
+
+  def timed(events, fn, *a, **k):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn(*a, **k)
+    end.record()
+    events.append((start, end))
+    return out
+
+  def make_losses(*a, **k):
+    r.loss_args = (a, k)
+    return real['losses'](*a, **k)
+
+  def sgd_step(ts, losses, tr, noise, tau, max_grad_norm=None):
+    if r.rec is None:
+      r.rec = dict(net=copy.deepcopy(ts.networks),
+                   target=copy.deepcopy(ts.target_q),
+                   log_alpha=ts.log_alpha.detach().clone(),
+                   normalizer=ts.normalizer_params, data=tr, noise=noise,
+                   tau=tau, max_grad_norm=max_grad_norm,
+                   lr=ts.policy_optimizer.param_groups[0]['lr'])
+    r.ts = ts
+    r.target_before = [p.detach().clone() for p in ts.target_q.parameters()]
+    return timed(r.sgd_ev, real['sgd'], ts, losses, tr, noise, tau,
+                 max_grad_norm)
+
+  def init(capacity, dummy):
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = real['init'](capacity, dummy)
+    torch.cuda.synchronize()
+    r.buffer_bytes = torch.cuda.memory_allocated() - before
+    return state
+
+  def insert(state, batch):
+    r.buffer = real['insert'](state, batch)
+    return r.buffer
+
+  port.acting.actor_step = lambda *a, **k: timed(r.actor_ev, real['actor'],
+                                                 *a, **k)
+  sac.sgd_step, rb.init, rb.insert = sgd_step, init, insert
+  losses_mod.make_losses = make_losses
+  out = []
+  zero_launches(lk)
+  try:
+    r.start.record()
+    r.calls = record_calls(lk, lambda: out.append(train(progress_fn)), keep=2)
+  finally:
+    port.acting.actor_step, sac.sgd_step = real['actor'], real['sgd']
+    rb.init, rb.insert = real['init'], real['insert']
+    losses_mod.make_losses = real['losses']
+  r.launches = dict(lk.LAUNCHES)
+  r.out = out[0]
+  torch.cuda.synchronize()
+  r.actor_ms = [a.elapsed_time(b) for a, b in r.actor_ev]
+  r.sgd_ms = [a.elapsed_time(b) for a, b in r.sgd_ev]
+  return r
+
+
+def sac_replay(torch, port, rec, loss_args, dev, dtype):
+  """The recorded first SGD step replayed on ``dev`` in ``dtype``: a copy
+  of the recorded networks, target critics and log α, fresh Adams (as the
+  first step has), ``make_losses`` with the recorded arguments, one
+  ``sac.sgd_step``.  Returns (metrics as floats, {name: gradient in
+  float64 on the CPU}, the networks)."""
+  import copy
+
+  cast = lambda x: x.to(dev, dtype if x.is_floating_point() else None)
+  net = copy.deepcopy(rec['net']).to(dev, dtype)
+  target = copy.deepcopy(rec['target']).to(dev, dtype)
+  log_alpha = rec['log_alpha'].to(dev, dtype).clone().requires_grad_(True)
+  opt = port.ppo.make_optimizer
+  ts = port.sac.TrainingState(
+      networks=net, target_q=target, log_alpha=log_alpha,
+      policy_optimizer=opt(net.policy.parameters(), rec['lr']),
+      q_optimizer=opt(net.q.parameters(), rec['lr']),
+      alpha_optimizer=opt([log_alpha], 3e-4),
+      normalizer_params=port.rs.to(rec['normalizer'], dev, dtype))
+  a, k = loss_args
+  k = dict(k)
+  if k.get('past_data') is not None:
+    k['past_data'] = k['past_data'].to(dev, dtype)
+  losses = port.sac_losses.make_losses(net, *a[1:], **k)
+  metrics = port.sac.sgd_step(
+      ts, losses, port.wrappers.tree_map(cast, rec['data']),
+      [cast(n) for n in rec['noise']], rec['tau'], rec['max_grad_norm'])
+  grads = {'log_alpha': log_alpha.grad.to('cpu', torch.float64)}
+  grads.update({k: p.grad.to('cpu', torch.float64)
+                for k, p in net.named_parameters()})
+  return {k: v.item() for k, v in metrics.items()}, grads, net
+
+
+def sac_rsr_grads(torch, port, rec, loss_args, dev, dtype):
+  """The gradient of the actor loss's RSR term alone (``rsr.
+  compute_rsr_loss`` on the raw observations and the sampled, postprocessed
+  action of the recorded actor draw) with respect to the policy parameters,
+  on ``dev`` in ``dtype``: {name: gradient in float64 on the CPU}."""
+  import copy
+
+  k = loss_args[1]
+  cast = lambda x: x.to(dev, dtype)
+  net = copy.deepcopy(rec['net']).to(dev, dtype)
+  data = port.wrappers.tree_map(cast, rec['data'])
+  obs = data.observation
+  if k.get('normalize_fn') is not None:
+    obs = k['normalize_fn'](port.rs.to(rec['normalizer'], dev, dtype), obs)
+  dist = net.distribution
+  with torch.enable_grad():
+    raw = dist.sample_no_postprocess(net.policy_logits(obs),
+                                     cast(rec['noise'][2]))
+    loss, _ = port.rsr.compute_rsr_loss(
+        data.observation, dist.postprocess(raw), data.next_observation,
+        k['past_data'].to(dev, dtype), loss_scale=k['rsr_loss_scale'])
+    params = dict(net.policy.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+  return {n: g.to('cpu', torch.float64) for n, g in zip(params, grads)}
+
+
+def sac_sgd_check(torch, port, r, tag) -> None:
+  """The card against the CPU on the recorded first SGD step: replayed
+  (sac_replay) on the card in fp32, on the CPU in fp32 and on the CPU in
+  float64.  Per metric (the three losses and the new α) |m − m64| <=
+  1e-5·|m64| + 1e-6, per gradient tensor (log α, policy, critics) max |g −
+  g64| <= 1e-4·max |g64|, for the card and the CPU fp32 run alike (a
+  criterion the CPU run fails is the wrong criterion).  With the RSR
+  penalty on, the gradient of the penalty alone (sac_rsr_grads) is held
+  to float64 the same way and must not be zero."""
+  f64 = torch.float64
+  out = {who: sac_replay(torch, port, r.rec, r.loss_args, dev, dtype)[:2]
+         for who, dev, dtype in (('card', DEV, torch.float32),
+                                 ('cpu', 'cpu', torch.float32),
+                                 ('f64', 'cpu', f64))}
+  m64, g64 = out['f64']
+  grad_ratio = lambda g, ref: max(
+      ((g[k] - ref[k]).abs().max() / (1e-4 * ref[k].abs().max() + 1e-30))
+      .item() for k in ref)
+  rsr = r.loss_args[1].get('past_data') is not None
+  if rsr:
+    s64 = sac_rsr_grads(torch, port, r.rec, r.loss_args, 'cpu', f64)
+    s_max = max(g.abs().max().item() for g in s64.values())
+  ok = not rsr or s_max > 0
+  for who, dev in (('card', DEV), ('cpu', 'cpu')):
+    m, g = out[who]
+    ratios = [max(abs(m[k] - m64[k]) / (1e-5 * abs(m64[k]) + 1e-6)
+                  for k in m), grad_ratio(g, g64)]
+    extra = ''
+    if rsr:
+      ratios.append(grad_ratio(sac_rsr_grads(torch, port, r.rec, r.loss_args,
+                                             dev, torch.float32), s64))
+      extra = (f', worst RSR-term gradient error/tolerance {ratios[-1]:.3g} '
+               f'(largest float64 entry {s_max:.6g})')
+    good = max(ratios) <= 1.0
+    log(f'{tag} SGD check, {who} fp32 against CPU float64 on the first SGD '
+        f'step ({r.rec["data"].reward.shape[0]} transitions): worst '
+        f'loss/alpha error/tolerance {ratios[0]:.3g}, worst gradient '
+        f'error/tolerance {ratios[1]:.3g} (log alpha, policy, critics)'
+        f'{extra} {"ok" if good else "FAIL"}')
+    ok = ok and good
+  log(f'{tag} SGD check, float64 metrics: '
+      + ', '.join(f'{k} {v:.6g}' for k, v in m64.items()))
+  if not ok:
+    raise SystemExit(f'{tag}: the card\'s SGD step disagrees with the CPU'
+                     + (' or the penalty has no gradient' if rsr else ''))
+
+
+def sac_checks(torch, r, tag, n_envs, prefill, capacity, obs_size,
+               action_size, n_sub, expect_of, card):
+  """Print a SAC run's rates, losses, buffer and memory, and fail on a
+  non-finite metric, on env steps, a normalizer count or a buffer size
+  other than the actor steps gave, on the policy, critics or log α left
+  unchanged, on target critics other than (1 − τ)·old + τ·new of the last
+  step (to fp32 rounding), on launch counts other than
+  ``expect_of(substeps)``."""
+  make_policy, (norm, net), metrics = r.out
+  steps = len(r.actor_ms)
+  substeps = steps * n_sub
+  total = steps * n_envs
+  train_ms = r.actor_ms[prefill:]
+  prefill_s = r.start.elapsed_time(r.actor_ev[prefill - 1][1]) / 1e3
+  mean = lambda xs: sum(xs) / len(xs)
+  med = lambda xs: sorted(xs)[len(xs) // 2]
+  expect_bytes = capacity * sac_transition_floats(obs_size, action_size) * 4
+  log(f'{tag}: {n_envs} envs, prefill {prefill} actor steps ({prefill * n_envs}'
+      f' env-steps) in {prefill_s:.3f} s, {steps - prefill} training steps '
+      f'of 1 actor step and {len(r.sgd_ms) // max(steps - prefill, 1)} SGD '
+      f'step(s); training/sps {metrics["training/sps"]:.1f} env-steps/s, '
+      f'training/walltime {metrics["training/walltime"]:.3f} s; CUDA-event '
+      f'spans, no synchronise: actor step {mean(r.actor_ms):.3f} ms (prefill '
+      f'{mean(r.actor_ms[:prefill]):.3f}, training {mean(train_ms):.3f}; '
+      f'{mean(r.actor_ms) / n_sub:.3f} per substep), SGD '
+      f'{mean(r.sgd_ms):.3f} ms per gradient step (median '
+      f'{med(r.sgd_ms):.3f}); losses: '
+      + ', '.join(f'{k} {metrics[f"training/{k}"]:.6g}'
+                  for k in ('critic_loss', 'actor_loss', 'alpha_loss',
+                            'alpha'))
+      + f'; buffer size {r.buffer.size} of {capacity}, insert position '
+      f'{r.buffer.insert_position}, {r.buffer_bytes} bytes allocated on the '
+      f'card ({expect_bytes} for {sac_transition_floats(obs_size, action_size)}'
+      f' floats a transition); launches in training {r.launches}; card {card}')
+  failed = [k for k, v in metrics.items() if not math.isfinite(v)]
+  if r.progress != [total]:
+    failed.append(f'env steps {r.progress} != {total}')
+  if float(norm.count) != total:
+    failed.append(f'normalizer count {float(norm.count)} != {total}')
+  if (r.buffer.size, r.buffer.insert_position) != (min(total, capacity),
+                                                   total % capacity):
+    failed.append(f'buffer size / position {r.buffer.size} / '
+                  f'{r.buffer.insert_position} after {total} inserts into '
+                  f'{capacity}')
+  if r.buffer_bytes < expect_bytes:
+    failed.append(f'the buffer took {r.buffer_bytes} bytes on the card, '
+                  f'less than its {expect_bytes}')
+  first = r.rec
+  same = [k for k, v in net.state_dict().items()
+          if torch.equal(v, first['net'].state_dict()[k])]
+  if torch.equal(r.ts.log_alpha.detach(), first['log_alpha']):
+    same.append('log_alpha')
+  if same:
+    failed.append(f'parameters unchanged by training: {same}')
+  tau = first['tau']
+  t_err = 0.0
+  for old, new, t in zip(r.target_before, net.q.parameters(),
+                         r.ts.target_q.parameters()):
+    old, new, t = old.double(), new.detach().double(), t.double()
+    want = old * (1 - tau) + new * tau
+    tol = 4 * U32 * (old.abs() * (1 - tau) + new.abs() * tau) + 1e-30
+    t_err = max(t_err, ((t - want).abs() / tol).max().item())
+  log(f'{tag}: target critics after the last step against (1 - tau)·old + '
+      f'tau·new (tau {tau}): worst error/(4u of the terms) {t_err:.3g}')
+  if t_err > 1.0:
+    failed.append('target critics are not the tau update of the last step')
+  if r.launches != expect_of(substeps):
+    failed.append(f'launches in training {r.launches} != '
+                  f'{expect_of(substeps)}')
+  if failed:
+    raise SystemExit(f'{tag} failed: {failed}')
+  return med(r.sgd_ms)
+
+
+def sac_config_run(port, env_name, steps):
+  """(config, hidden sizes, prefill actor steps) of the tuned SAC config of
+  ``env_name`` cut to ``steps`` training steps in one epoch with no
+  evaluation inside (``num_evals`` 0: one epoch, as 2 gives, without its
+  two evaluations of a whole episode)."""
+  cfg = port.configs.sac_config(env_name)
+  hidden = tuple(cfg.pop('network_factory')['hidden_layer_sizes'])
+  cfg.pop('policy_obs_key', None)
+  prefill = math.ceil(cfg.min_replay_size / cfg.num_envs)
+  cfg.update(num_timesteps=(prefill + steps) * cfg.num_envs, num_evals=0)
+  return cfg, hidden, prefill
+
+
+def sac_phase(torch, port, lk, card):
+  """Phase 8: SAC with its replay ring on the card, three runs at full
+  width, each cut to SAC_TRAIN_STEPS training steps after its prefill: (a)
+  ``sac.train`` with ``configs.sac_config`` on cube-push, (b) ``rsr.
+  pipeline.policy_params_training(algorithm='sac')`` at the RSR CLI's SAC
+  table, (c) ``sac.train`` on the Go2 joystick's 'state' entry
+  (``SelectObservationWrapper``) at its SAC table.  Each: sac_checks, the
+  kernels of its last training substep under phase 2's criteria at every
+  E, the SGD check, one SGD step under the profiler; (a) and (c) the
+  evaluator.  Then the trained JAX SAC policy of logs/cube_sac_500k_r5
+  served on cube-push.  Returns the kernels' launches over the phase."""
+  import functools
+
+  import_train(port)
+  mod = _port_module
+  port.sac, port.sac_networks = mod('train.sac'), mod('train.sac_networks')
+  port.sac_losses = mod('train.sac_losses')
+  port.replay_buffer = mod('train.replay_buffer')
+  launches = dict.fromkeys(KERNELS, 0)
+
+  def add(r):
+    for k in launches:
+      launches[k] += r[k]
+
+  # (a) cube-push
+  cfg, hidden, prefill = sac_config_run(port, ENV, SAC_TRAIN_STEPS)
+  factory = functools.partial(port.sac_networks.make_sac_networks,
+                              hidden_layer_sizes=hidden)
+  env0 = port.envs.load(ENV, device=DEV)
+  r = run_sac(torch, port, lk, lambda progress_fn: port.sac.train(
+      environment=env0, network_factory=factory, seed=SEED, device=DEV,
+      progress_fn=progress_fn, **cfg))
+  step_ms = sac_checks(torch, r, 'sac', cfg.num_envs, prefill,
+                       cfg.max_replay_size, 23, 5, env0.n_substeps,
+                       CUBE_TRAIN_LAUNCHES, card)
+  add(r.launches)
+  cube_kernel_rows(torch, lk, r.calls, cfg.num_envs, 'sac training')
+  del r.calls
+  sac_sgd_check(torch, port, r, 'sac')
+  profile_sgd(torch, lambda: sac_replay(torch, port, r.rec, r.loss_args, DEV,
+                                        torch.float32), step_ms, tag='sac')
+  make_policy, params, _ = r.out
+  run_eval(torch, port, env0, make_policy, params, cfg.episode_length, 'sac')
+  del r, make_policy, params
+
+  # (b) RSR SAC
+  arrays = port.rsr_datasets.load_rsr_datasets(RSR_DATA, 50, device=DEV)
+  env0 = port.envs.load(RSR_ENV, device=DEV)
+  sizes = RSR_SAC_SIZES
+  B = sizes['num_envs']
+  prefill = math.ceil(sizes['min_replay_size'] / B)
+  factory = functools.partial(port.sac_networks.make_sac_networks,
+                              hidden_layer_sizes=(32,) * 4)
+  r = run_sac(torch, port, lk,
+              lambda progress_fn: port.rsr_pipeline.policy_params_training(
+                  env0, algorithm='sac', past_states=arrays[0],
+                  past_actions=arrays[1], past_next_states_real=arrays[2],
+                  past_next_states_sim=arrays[3],
+                  current_next_states_sim=arrays[4], bandwidth=RSR_BANDWIDTH,
+                  rsr_loss_scale=1.0,
+                  num_timesteps=(prefill + SAC_TRAIN_STEPS) * B, num_evals=0,
+                  network_factory=factory, progress_fn=progress_fn, seed=SEED,
+                  device=DEV, **sizes))
+  r.out = r.out + (r.metrics,)
+  past = r.loss_args[1]['past_data']
+  log(f'rsr sac: bandwidth {RSR_BANDWIDTH}, gate weight KL(real || previous '
+      f'sim) {past.weight.item():.6g}, rsr_loss_scale '
+      f'{r.loss_args[1]["rsr_loss_scale"]}')
+  sac_checks(torch, r, 'rsr sac', B, prefill, sizes['max_replay_size'], 23, 5,
+             env0.n_substeps, CUBE_TRAIN_LAUNCHES, card)
+  add(r.launches)
+  cube_kernel_rows(torch, lk, r.calls, B, 'rsr sac training')
+  del r.calls
+  sac_sgd_check(torch, port, r, 'rsr sac')
+  del r
+
+  # (c) the Go2 joystick
+  cfg, hidden, prefill = sac_config_run(port, GO2_ENV, SAC_TRAIN_STEPS)
+  factory = functools.partial(port.sac_networks.make_sac_networks,
+                              hidden_layer_sizes=hidden)
+  env0 = port.wrappers.SelectObservationWrapper(
+      port.envs.load(GO2_ENV, device=DEV), 'state')
+  r = run_sac(torch, port, lk, lambda progress_fn: port.sac.train(
+      environment=env0, network_factory=factory, seed=SEED, device=DEV,
+      progress_fn=progress_fn, **cfg))
+  step_ms = sac_checks(torch, r, 'go2 sac', cfg.num_envs, prefill,
+                       cfg.max_replay_size, 48, 12, env0.n_substeps,
+                       GO2_TRAIN_LAUNCHES, card)
+  add(r.launches)
+  B, tag = cfg.num_envs, f'Go2 SAC training, B {cfg.num_envs}'
+  k4_args = r.calls['_newton_lanes_core'][-1]
+  if k4_args[6].shape[-1] != B:
+    raise SystemExit('go2 sac: the recorded kernel inputs are not of '
+                     'training')
+  report({f'K1 spd_solve_lanes ({tag})': k1_row(
+              torch, lk, tag, r.calls['spd_solve_lanes'][-2:]),
+          f'K4 _newton_lanes_core ({tag})': k4_row(
+              torch, lk, tag, k4_args, [(k4_args[1], k4_args[2])])})
+  if not k4_every_E(torch, lk, tag, k4_args):
+    raise SystemExit('K4 disagrees at an E on the Go2 SAC path')
+  del r.calls, k4_args
+  sac_sgd_check(torch, port, r, 'go2 sac')
+  profile_sgd(torch, lambda: sac_replay(torch, port, r.rec, r.loss_args, DEV,
+                                        torch.float32), step_ms,
+              tag='go2 sac')
+  make_policy, params, _ = r.out
+  run_eval(torch, port, env0, make_policy, params, cfg.episode_length,
+           'go2 sac')
+  del r, make_policy, params
+
+  # serving a trained SAC policy of the JAX package
+  normalizer, policy_params = port.sac.load_params(SAC_PARAMS)
+  policy = port.sac_networks.make_policy(normalizer, policy_params,
+                                         device=DEV)
+  env0 = port.envs.load(ENV, device=DEV)
+  env = port.wrappers.wrap_for_training(env0, episode_length=1200,
+                                        num_envs=ENVS)
+  state = env.reset(torch.Generator(device=DEV).manual_seed(SEED))
+  _, served, _ = rollout_cube(torch, lk, env0, env, policy, state, card,
+                              tag=f'sac serve ({os.path.relpath(SAC_PARAMS, ROOT)})')
+  add(served)
   return launches
 
 
@@ -2217,6 +2673,13 @@ def main() -> int:
         log(f'  {name}: {line.strip()}')
   torch.set_grad_enabled(False)
 
+  t_phase = [time.perf_counter()]
+
+  def phase_done(n):
+    now = time.perf_counter()
+    log(f'phase {n}: {now - t_phase[0]:.1f} s')
+    t_phase[0] = now
+
   # -- 2. kernels, on the inputs of one control step of each path
   gen = torch.Generator(device=DEV).manual_seed(SEED)
   env0, env, policy, state = load_path(torch, port, ENV, PARAMS, ENVS, 1200,
@@ -2258,6 +2721,8 @@ def main() -> int:
     log('kernels-only: stopped after phase 2 (no result line)')
     return 0
 
+  phase_done(2)
+
   # -- 3. the two paths: reference, rollout, profile
   n = REF_ENVS
 
@@ -2289,26 +2754,36 @@ def main() -> int:
   profile_control_step(torch, 'go2', g_env, g_policy, g_state, g_step_ms)
   del g_env0, g_env, g_policy, g_state
 
+  phase_done(3)
+
   # -- 4. training
   t_launches = train_phase(torch, port, lk, card)
+  phase_done(4)
 
   # -- 5. RSR policy training on cube-push
   r_launches = rsr_phase(torch, port, lk, card)
+  phase_done(5)
 
   # -- 6. PPO on the Go2 joystick
   g_t_launches = go2_train_phase(torch, port, lk, card)
+  phase_done(6)
 
   # -- 7. env-parameter tuning on cube-push
   tune_launches = tuning_phase(torch, port, lk, card)
+  phase_done(7)
 
-  # -- 8. result
+  # -- 8. SAC: cube-push, RSR, the Go2 joystick; serving a SAC policy
+  sac_launches = sac_phase(torch, port, lk, card)
+  phase_done(8)
+
+  # -- 9. result
   log('kernels: ' + ', '.join(f'{v[0]} {k}' for k, v in KERNELS.items()))
   out = []
   for name, (short, src, tpu) in KERNELS.items():
     r = rows[name]
     count = sum(phase[name] for phase in (launches, g_launches, t_launches,
                                           r_launches, g_t_launches,
-                                          tune_launches))
+                                          tune_launches, sac_launches))
     if count <= 0:
       raise SystemExit(f'{name} was launched by no path')
     # ms and library_ms are device times from torch.profiler (the kernel by

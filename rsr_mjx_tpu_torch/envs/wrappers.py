@@ -10,7 +10,9 @@ stack without domain randomization:
     their reset-time info;
   - AutoResetWrapper: restores the cached first state where done.
 The JAX StrongTypeWrapper clears JAX weak types and has no counterpart.
-``EvalWrapper`` goes above the stack for the evaluator.
+``EvalWrapper`` goes above the stack for the evaluator;
+``SelectObservationWrapper`` goes below it, to feed a trainer with a flat
+policy one entry of a dict observation.
 
 Every step builds new ``info``/``metrics`` dicts, so a state returned by a
 step never aliases the dicts of the state it came from.
@@ -241,6 +243,28 @@ class EvalWrapper(Wrapper):
         episode_steps=torch.where(active > 0, nstate.info['steps'],
                                   em.episode_steps))
     return nstate.replace(metrics=metrics, info=info)
+
+
+class SelectObservationWrapper(Wrapper):
+  """Replaces a dict observation by its entry ``key`` (the SAC policy of a
+  Go2 task reads ``state``).  The inner env's step reads ``data`` and
+  ``info`` only, so it takes the state with the selected obs."""
+
+  def __init__(self, env: Env, key: str = 'state'):
+    super().__init__(env)
+    self._key = key
+
+  def reset(self, *args) -> State:
+    state = self.env.reset(*args)
+    return state.replace(obs=state.obs[self._key])
+
+  def step(self, state: State, action: torch.Tensor) -> State:
+    nstate = self.env.step(state, action)
+    return nstate.replace(obs=nstate.obs[self._key])
+
+  @property
+  def observation_size(self) -> int:
+    return self.env.observation_size[self._key][-1]
 
 
 def wrap_for_training(env: Env, episode_length: int = 1000,

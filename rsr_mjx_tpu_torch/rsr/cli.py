@@ -4,15 +4,16 @@ Counterpart of ``scripts/rsr_policy_training.py``: loads and validates the
 dataset (``rsr.datasets.load_rsr_datasets``), loads the env and runs
 ``rsr.pipeline.policy_params_training`` with the RSR penalty; logs a
 ``step / reward / sim2real`` line and rewrites ``progress.json`` after every
-evaluation, saves a checkpoint per step under ``<logdir>/checkpoints/``,
-and writes ``final_params.pkl`` at the end.  The flags and defaults are the
-JAX script's, plus ``--device`` and the PPO sizes that a short run cuts
-(by default ``policy_params_training``'s).  ``--algorithm sac``, the JAX
-default, raises until SAC is ported (ROADMAP item 4), as does an env with
-dict observations (its ``SelectObservationWrapper`` comes with item 4).
+evaluation, saves checkpoints under ``<logdir>/checkpoints/`` (PPO: a
+directory per step; SAC: ``run_sac_<step>.pkl``), and writes
+``final_params.pkl`` at the end.  The flags and defaults are the JAX
+script's (``--algorithm sac`` the default), plus ``--device`` and the
+sizes that a short run cuts (by default ``policy_params_training``'s).  An
+env with dict observations feeds the policy its ``state`` entry through
+``SelectObservationWrapper``, for either algorithm, as the JAX script does.
 
-    python -m rsr_mjx_tpu_torch.rsr.cli --algorithm ppo --data_dir \\
-        data_rsr_demo [--device cuda] [--logdir DIR] [--num_timesteps N] ...
+    python -m rsr_mjx_tpu_torch.rsr.cli --data_dir data_rsr_demo \\
+        [--algorithm sac] [--device cuda] [--logdir DIR] [--num_timesteps N]
 """
 
 from __future__ import annotations
@@ -66,9 +67,11 @@ def main(argv=None):
   args = parse_args(argv)
 
   from rsr_mjx_tpu_torch import envs
+  from rsr_mjx_tpu_torch.envs import wrappers
   from rsr_mjx_tpu_torch.rsr import datasets, pipeline
   from rsr_mjx_tpu_torch.train import checkpoint
   from rsr_mjx_tpu_torch.train import networks as ppo_networks
+  from rsr_mjx_tpu_torch.train import sac, sac_networks
 
   arrays = datasets.load_rsr_datasets(args.data_dir, args.max_transitions,
                                       device=args.device)
@@ -76,11 +79,12 @@ def main(argv=None):
         f'{arrays[0].shape[1]}, act {arrays[1].shape[1]}', flush=True)
 
   env = envs.load(args.env, device=args.device)
+  eval_env = None
   if not isinstance(env.observation_size, int):
-    raise NotImplementedError(
-        f'{args.env} has dict observations: RSR training feeds the policy '
-        "its 'state' entry through SelectObservationWrapper, which is not "
-        'ported yet (ROADMAP item 4)')
+    # dict-observation envs (Go2): the policy reads the 'state' entry
+    env = wrappers.SelectObservationWrapper(env, 'state')
+    eval_env = wrappers.SelectObservationWrapper(
+        envs.load(args.env, device=args.device), 'state')
   ckpt_dir = os.path.join(args.logdir, 'checkpoints')
   os.makedirs(ckpt_dir, exist_ok=True)
   progress_rows = []
@@ -101,11 +105,16 @@ def main(argv=None):
     checkpoint.save(os.path.join(ckpt_dir, f'{step}'), params)
 
   # the reference's 32 x 4 networks (rsr_policy_training.py:260-270)
-  network_factory = functools.partial(
-      ppo_networks.make_ppo_networks,
-      policy_hidden_layer_sizes=(32, 32, 32, 32),
-      value_hidden_layer_sizes=(32, 32, 32, 32),
-  )
+  ppo_run = args.algorithm == 'ppo'
+  if ppo_run:
+    network_factory = functools.partial(
+        ppo_networks.make_ppo_networks,
+        policy_hidden_layer_sizes=(32, 32, 32, 32),
+        value_hidden_layer_sizes=(32, 32, 32, 32),
+    )
+  else:
+    network_factory = functools.partial(
+        sac_networks.make_sac_networks, hidden_layer_sizes=(32, 32, 32, 32))
   sizes = {name: getattr(args, name) for name, _ in _SIZE_FLAGS
            if getattr(args, name) is not None}
   make_inference_fn, params = pipeline.policy_params_training(
@@ -125,14 +134,16 @@ def main(argv=None):
       max_replay_size=args.max_replay_size,
       network_factory=network_factory,
       progress_fn=progress_fn,
-      policy_params_fn=policy_params_fn,
+      policy_params_fn=policy_params_fn if ppo_run else None,
+      checkpoint_logdir=None if ppo_run else os.path.join(ckpt_dir, 'run'),
       restore_checkpoint_path=args.restore_checkpoint_path,
+      eval_env=eval_env,
       seed=args.seed,
       device=args.device,
       **sizes,
   )
-  checkpoint.save_params(os.path.join(args.logdir, 'final_params.pkl'),
-                         params)
+  save = checkpoint.save_params if ppo_run else sac.save_params
+  save(os.path.join(args.logdir, 'final_params.pkl'), params)
   print(f'done; params in {args.logdir}', flush=True)
   return make_inference_fn, params
 

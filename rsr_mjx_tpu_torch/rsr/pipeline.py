@@ -17,7 +17,7 @@ Counterpart of ``rsr_mjx_tpu/rsr/pipeline.py``:
   gradient entries are zeroed without a word (:296).
 - ``build_policy_rsr_data`` / ``policy_params_training``: validate the
   five dataset arrays, precompute the penalty state and train with the
-  port's ``train.ppo``; SAC is ROADMAP item 4 and raises.
+  port's ``train.ppo`` or ``train.sac``.
 """
 
 from __future__ import annotations
@@ -427,10 +427,11 @@ def policy_params_training(
     eval_env=None,
     device='cuda',
 ):
-  """Train an RSR policy: PPO with the penalty built from the five
-  datasets (``rsr_loss_scale`` times it) in the loss.  ``env`` and
-  ``eval_env`` live on ``device``.  Returns (make_inference_fn, params),
-  params being (normalizer, ``PPONetworks``)."""
+  """Train an RSR policy with PPO or SAC, the penalty built from the five
+  datasets (``rsr_loss_scale`` times it) in the PPO loss or the SAC actor
+  loss.  ``env`` and ``eval_env`` live on ``device``.  Returns
+  (make_inference_fn, params), params being (normalizer, ``PPONetworks``
+  or ``SACNetworks``)."""
   if rsr_loss_scale < 0:
     raise ValueError(
         f'rsr_loss_scale must be non-negative, got {rsr_loss_scale}'
@@ -496,9 +497,42 @@ def policy_params_training(
     return make_inference_fn, params
 
   if algorithm == 'sac':
-    raise NotImplementedError('RSR policy training with SAC is not ported '
-                              'yet: ROADMAP item 4 (SAC, with the RSR '
-                              'penalty)')
+    from rsr_mjx_tpu_torch.train import sac, sac_networks
+
+    if restore_checkpoint_path:
+      raise ValueError(
+          'SAC cannot resume complete training state; use '
+          'checkpoint_logdir to save inference checkpoints instead'
+      )
+    make_inference_fn, params, _ = sac.train(
+        environment=env,
+        past_data=past_data,
+        num_timesteps=num_timesteps,
+        num_evals=num_evals,
+        num_eval_envs=num_eval_envs,
+        reward_scaling=reward_scaling,
+        episode_length=episode_length,
+        normalize_observations=normalize_observations,
+        action_repeat=action_repeat,
+        discounting=discounting,
+        learning_rate=learning_rate,
+        num_envs=num_envs,
+        batch_size=batch_size,
+        tau=tau,
+        min_replay_size=min_replay_size,
+        max_replay_size=max_replay_size,
+        grad_updates_per_step=grad_updates_per_step,
+        checkpoint_logdir=checkpoint_logdir,
+        network_factory=network_factory or sac_networks.make_sac_networks,
+        progress_fn=progress_fn,
+        deterministic_eval=deterministic_eval,
+        rsr_loss_scale=rsr_loss_scale,
+        seed=seed,
+        wrap_env_fn=wrap_env_fn,
+        eval_env=eval_env,
+        device=device,
+    )
+    return make_inference_fn, params
 
   raise ValueError(
       f'unsupported algorithm {algorithm!r}; expected "ppo" or "sac"'

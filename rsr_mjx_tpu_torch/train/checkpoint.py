@@ -10,7 +10,8 @@ step-numbered directory as the JAX function does.  ``save_params`` writes
 (RunningStatisticsState, {'policy': [...], 'value': [...]}), with the
 normalizer under the JAX package's class path, so that the JAX
 ``sac.load_params`` reads it where torch is not installed;
-``networks.load_ppo_params`` reads it back.
+``networks.load_ppo_params`` reads it back.  ``dump_numpy`` is that
+pickler, which the SAC trainer's checkpoints use too.
 """
 
 from __future__ import annotations
@@ -77,9 +78,14 @@ class _JaxPathPickler(pickle._Pickler):
     self.memoize(obj)
 
 
+def dump_numpy(path: str, tree) -> None:
+  """Pickle ``tree`` (numpy arrays, dicts, lists and the normalizer state)
+  with the normalizer under the JAX package's class path."""
+  with open(path, 'wb') as f:
+    _JaxPathPickler(f, protocol=4).dump(tree)
+
+
 def save_params(path: str, params) -> None:
   """Pickle ``params`` = (normalizer, PPONetworks) as numpy in the JAX
   trainer's ``final_params.pkl`` layout."""
-  with open(path, 'wb') as f:
-    _JaxPathPickler(f, protocol=4).dump(
-        ppo_networks.ppo_params_to_numpy(*params))
+  dump_numpy(path, ppo_networks.ppo_params_to_numpy(*params))

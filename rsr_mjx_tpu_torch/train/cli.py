@@ -1,14 +1,17 @@
-"""PPO training from the command line.
+"""PPO and SAC training from the command line.
 
-Counterpart of the PPO branch of ``scripts/train.py``: the tuned config of
-the env (``configs.ppo_config``), flags given on the command line over it,
-``ppo.train`` on one device, ``progress.json`` after every epoch, a
-checkpoint under ``<logdir>/checkpoints/<step>`` after every epoch, and
-``final_params.pkl`` at the end.  Experiment-logging sinks and rendering
-are not ported (ROADMAP item 8).
+Counterpart of ``scripts/train.py``: the tuned config of the env
+(``configs.ppo_config`` or ``configs.sac_config``), flags given on the
+command line over it, ``ppo.train`` or ``sac.train`` on one device,
+``progress.json`` after every epoch, a checkpoint after every epoch (PPO:
+the directory ``<logdir>/checkpoints/<step>``; SAC:
+``<logdir>/checkpoints/run_sac_<step>.pkl``) and ``final_params.pkl`` at
+the end.  SAC on an env with dict observations feeds the policy the
+config's ``policy_obs_key`` entry (``SelectObservationWrapper``).
+Experiment-logging sinks and rendering are not ported (ROADMAP item 8).
 
     python -m rsr_mjx_tpu_torch.train.cli --env AirbotCubePushTrain \\
-        [--device cuda] [--logdir DIR] [--num_timesteps N] ...
+        [--algorithm ppo|sac] [--device cuda] [--logdir DIR] ...
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import time
 # has it, as scripts/train.py's
 _INT_FLAGS = ('num_timesteps', 'num_envs', 'num_evals', 'batch_size',
               'episode_length', 'num_eval_envs', 'unroll_length',
-              'num_minibatches', 'num_updates_per_batch')
+              'num_minibatches', 'num_updates_per_batch',
+              'grad_updates_per_step', 'min_replay_size', 'max_replay_size')
 _FLOAT_FLAGS = ('learning_rate', 'discounting')
 
 
@@ -31,10 +35,12 @@ def parse_args(argv=None) -> argparse.Namespace:
   p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   p.add_argument('--env', default='AirbotCubePushTrain',
                  help='registered env name')
+  p.add_argument('--algorithm', default='ppo', choices=('ppo', 'sac'),
+                 help='RL algorithm')
   p.add_argument('--logdir', default=None,
                  help='output directory (default: logs/<run>)')
   p.add_argument('--restore_checkpoint_path', default=None,
-                 help='a checkpoint directory to start from')
+                 help='a checkpoint directory to start from (PPO)')
   p.add_argument('--seed', type=int, default=0)
   p.add_argument('--device', default='cuda',
                  help="device of the envs and networks ('cpu' for a run "
@@ -53,19 +59,22 @@ def main(argv=None):
   args = parse_args(argv)
 
   from rsr_mjx_tpu_torch import envs
+  from rsr_mjx_tpu_torch.envs import wrappers
   from rsr_mjx_tpu_torch.train import checkpoint, configs
   from rsr_mjx_tpu_torch.train import networks as ppo_networks
-  from rsr_mjx_tpu_torch.train import ppo
+  from rsr_mjx_tpu_torch.train import ppo, sac, sac_networks
 
+  algo = args.algorithm
   env = envs.load(args.env, device=args.device)
   eval_env = envs.load(args.env, device=args.device)
-  cfg = configs.ppo_config(args.env)
+  cfg = (configs.ppo_config if algo == 'ppo' else configs.sac_config)(
+      args.env)
   for key in _INT_FLAGS + _FLOAT_FLAGS:
     if getattr(args, key) is not None and key in cfg:
       cfg[key] = getattr(args, key)
 
   logdir = args.logdir or os.path.join(
-      'logs', f'{args.env}-ppo-{time.strftime("%Y%m%d-%H%M%S")}')
+      'logs', f'{args.env}-{algo}-{time.strftime("%Y%m%d-%H%M%S")}')
   ckpt_dir = os.path.join(logdir, 'checkpoints')
   os.makedirs(ckpt_dir, exist_ok=True)
   history = []
@@ -83,19 +92,35 @@ def main(argv=None):
     checkpoint.save(os.path.join(ckpt_dir, f'{step}'), params)
 
   nf_cfg = dict(cfg.pop('network_factory'))
-  network_factory = functools.partial(
-      ppo_networks.make_ppo_networks,
-      policy_obs_key=nf_cfg.pop('policy_obs_key', 'state'),
-      value_obs_key=nf_cfg.pop('value_obs_key', 'state'),
-      **{k: tuple(v) for k, v in nf_cfg.items()})
-  make_policy, params, metrics = ppo.train(
-      environment=env, eval_env=eval_env, network_factory=network_factory,
-      progress_fn=progress_fn, policy_params_fn=policy_params_fn,
-      restore_checkpoint_path=args.restore_checkpoint_path, seed=args.seed,
-      device=args.device, **cfg)
+  if algo == 'ppo':
+    network_factory = functools.partial(
+        ppo_networks.make_ppo_networks,
+        policy_obs_key=nf_cfg.pop('policy_obs_key', 'state'),
+        value_obs_key=nf_cfg.pop('value_obs_key', 'state'),
+        **{k: tuple(v) for k, v in nf_cfg.items()})
+    make_policy, params, metrics = ppo.train(
+        environment=env, eval_env=eval_env, network_factory=network_factory,
+        progress_fn=progress_fn, policy_params_fn=policy_params_fn,
+        restore_checkpoint_path=args.restore_checkpoint_path, seed=args.seed,
+        device=args.device, **cfg)
+    save_params = checkpoint.save_params
+  else:
+    obs_key = cfg.pop('policy_obs_key', 'state')
+    if not isinstance(env.observation_size, int):
+      env = wrappers.SelectObservationWrapper(env, obs_key)
+      eval_env = wrappers.SelectObservationWrapper(eval_env, obs_key)
+    network_factory = functools.partial(
+        sac_networks.make_sac_networks,
+        **{k: tuple(v) for k, v in nf_cfg.items()})
+    make_policy, params, metrics = sac.train(
+        environment=env, eval_env=eval_env, network_factory=network_factory,
+        progress_fn=progress_fn,
+        checkpoint_logdir=os.path.join(ckpt_dir, 'run'), seed=args.seed,
+        device=args.device, **cfg)
+    save_params = sac.save_params
 
   final_path = os.path.join(logdir, 'final_params.pkl')
-  checkpoint.save_params(final_path, params)
+  save_params(final_path, params)
   print(f'training done; final params at {final_path}', flush=True)
   print(f'final metrics: {metrics}', flush=True)
   return make_policy, params, metrics

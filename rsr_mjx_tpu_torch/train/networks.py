@@ -218,18 +218,43 @@ def make_inference_fn(networks: PPONetworks, normalizer=None):
   return make_policy
 
 
+def to_tensor(device):
+  """numpy (or array-like) → float32 tensor on ``device``."""
+  return lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+  return t.detach().cpu().numpy().astype(np.float32)
+
+
+def layers_to_state_dict(prefix: str, layers, to_tensor_fn) -> dict:
+  """The state dict entries of an ``MLP`` (its keys after ``prefix``, such
+  as 'policy.') from JAX-layout layers [{'w': (in, out), 'b': (out,)},
+  ...]; ``nn.Linear`` keeps its weight as (out, in)."""
+  sd = {}
+  for i, layer in enumerate(layers):
+    sd[f'{prefix}layers.{i}.weight'] = to_tensor_fn(layer['w']).T.contiguous()
+    sd[f'{prefix}layers.{i}.bias'] = to_tensor_fn(layer['b'])
+  return sd
+
+
+def state_dict_to_layers(prefix: str, sd) -> list:
+  """The inverse of ``layers_to_state_dict``: numpy float32 layers."""
+  n = sum(1 for k in sd if k.startswith(f'{prefix}layers.')
+          and k.endswith('.weight'))
+  return [{'w': to_numpy(sd[f'{prefix}layers.{i}.weight']).T.copy(),
+           'b': to_numpy(sd[f'{prefix}layers.{i}.bias'])} for i in range(n)]
+
+
 def ppo_params_from_numpy(normalizer: RunningStatisticsState,
                           params: Mapping[str, Any], device='cuda'):
   """(normalizer of float32 tensors on ``device``, ``PPONetworks`` state
   dict) from the JAX layout: {'policy': [{'w': (in, out), 'b': (out,)},
-  ...], 'value': [...]} and the whole normalizer state.  ``nn.Linear``
-  keeps its weight as (out, in)."""
-  f32 = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
+  ...], 'value': [...]} and the whole normalizer state."""
+  f32 = to_tensor(device)
   sd = {}
   for net in ('policy', 'value'):
-    for i, layer in enumerate(params[net]):
-      sd[f'{net}.layers.{i}.weight'] = f32(layer['w']).T.contiguous()
-      sd[f'{net}.layers.{i}.bias'] = f32(layer['b'])
+    sd.update(layers_to_state_dict(f'{net}.', params[net], f32))
   return running_statistics.map_state(f32, normalizer), sd
 
 
@@ -238,15 +263,9 @@ def ppo_params_to_numpy(normalizer: RunningStatisticsState, networks):
   float32 arrays, {'policy': [{'w', 'b'}, ...], 'value': [...]}) from the
   normalizer and a ``PPONetworks`` or its state dict."""
   sd = networks.state_dict() if isinstance(networks, nn.Module) else networks
-  npy = lambda t: t.detach().cpu().numpy().astype(np.float32)
-  params = {}
-  for net in ('policy', 'value'):
-    n = sum(1 for k in sd if k.startswith(f'{net}.layers.')
-            and k.endswith('.weight'))
-    params[net] = [{'w': npy(sd[f'{net}.layers.{i}.weight']).T.copy(),
-                    'b': npy(sd[f'{net}.layers.{i}.bias'])}
-                   for i in range(n)]
-  return running_statistics.map_state(npy, normalizer), params
+  return (running_statistics.map_state(to_numpy, normalizer),
+          {net: state_dict_to_layers(f'{net}.', sd)
+           for net in ('policy', 'value')})
 
 
 # ---------------------------------------------------------------------------

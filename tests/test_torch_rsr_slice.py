@@ -10,7 +10,9 @@
    ``final_params.pkl`` that the JAX package reads (``sac.load_params``)
    in a process where torch cannot be imported, and whose deterministic
    policy there gives the port's actions (rtol 1e-5: the same fp32 MLP,
-   another summation order).  SAC and dict-observation envs raise.
+   another summation order).  The CLI's default, SAC, on the demo data and
+   on the Go2 joystick's 'state' entry (``SelectObservationWrapper``),
+   its pickles read by the JAX package the same way.
 2. PPO on the Go2 joystick: the Go2 tables equal to the JAX package's for
    every Go2 task; the trained value network on ``privileged_state``
    (logs/go2_joystick_50M_r5/final_params.pkl) against JAX's (rtol 1e-5);
@@ -42,6 +44,8 @@ from rsr_mjx_tpu_torch.train import cli as pcli
 from rsr_mjx_tpu_torch.train import configs as pconfigs
 from rsr_mjx_tpu_torch.train import networks as pnets
 from rsr_mjx_tpu_torch.train import running_statistics as prs
+from rsr_mjx_tpu_torch.train import sac as psac
+from rsr_mjx_tpu_torch.train import sac_networks as psn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, 'data_rsr_demo')
@@ -79,14 +83,14 @@ def test_rsr_policy_training_end_to_end():
   policy = make_inference_fn(params, deterministic=True)
   act, _ = policy(torch.zeros(3, obs_dim), None)
   assert act.shape == (3, act_dim) and torch.isfinite(act).all()
-  for bad in (dict(algorithm='sac'), dict(algorithm='a2c'),
-              dict(rsr_loss_scale=-1.0), dict(past_states=None)):
+  for bad in (dict(algorithm='sac', restore_checkpoint_path='ckpt'),
+              dict(algorithm='a2c'), dict(rsr_loss_scale=-1.0),
+              dict(past_states=None)):
     kw = dict(env=env, past_states=s, past_actions=a,
               past_next_states_real=s, past_next_states_sim=s,
               current_next_states_sim=s, device='cpu')
     kw.update(bad)
-    with pytest.raises(NotImplementedError if bad.get('algorithm') == 'sac'
-                       else ValueError, match='ROADMAP item 4|algorithm|'
+    with pytest.raises(ValueError, match='SAC cannot resume|algorithm|'
                        'non-negative|required'):
       ppipeline.policy_params_training(**kw)
 
@@ -145,14 +149,88 @@ def test_rsr_cli_writes_a_pickle_the_jax_package_reads_without_torch(
   np.testing.assert_allclose(served, jact, rtol=1e-5, atol=1e-6)
 
 
-def test_rsr_cli_raises_for_sac_and_dict_observations(tmp_path):
-  base = ['--data_dir', DEMO, '--device', 'cpu', '--logdir',
-          str(tmp_path / 'x')]
-  with pytest.raises(NotImplementedError, match='ROADMAP item 4'):
-    rsr_cli.main(base)  # --algorithm sac, the default
-  with pytest.raises(NotImplementedError, match='SelectObservationWrapper'):
-    rsr_cli.main(base + ['--algorithm', 'ppo', '--env',
-                         'Go2JoystickFlatTerrain'])
+# The JAX package's deterministic SAC policy on a port-written pickle, in a
+# process where ``import torch`` fails.
+_JAX_SAC_READER = r'''
+import sys
+sys.modules['torch'] = None  # any import of torch now raises ImportError
+import numpy as np
+from rsr_mjx_tpu.train import running_statistics, sac, sac_networks
+normalizer, policy = sac.load_params(sys.argv[1])
+assert type(normalizer).__module__ == 'rsr_mjx_tpu.train.running_statistics'
+obs_size, action_size = policy[0]['w'].shape[0], policy[-1]['w'].shape[1] // 2
+net = sac_networks.make_sac_networks(
+    obs_size, action_size,
+    hidden_layer_sizes=[layer['w'].shape[1] for layer in policy[:-1]])
+obs = np.load(sys.argv[2])
+logits = net.policy_logits(policy, running_statistics.normalize(normalizer,
+                                                                obs))
+np.save(sys.argv[3], np.asarray(net.distribution.mode(logits)))
+'''
+
+
+def _go2_rsr_files(path):
+  """Six seeded RSR files at the Go2 policy's widths: obs 48, action 12."""
+  rng = np.random.default_rng(4)
+  n = 6
+  for name, width in (('real_obs.txt', 48), ('real_action.txt', 12),
+                      ('past_sim_obs.txt', 48), ('current_sim_obs.txt', 48),
+                      ('obs.txt', 48), ('actions.txt', 12)):
+    rows = n if width == 12 else n + 1
+    np.savetxt(path / name, rng.normal(size=(rows, width)), delimiter=',')
+  return str(path)
+
+
+@pytest.mark.parametrize('case', ['sac cube-push', 'sac go2 state'])
+def test_rsr_cli_trains_sac_and_dict_observations(case, tmp_path):
+  """The RSR CLI's default ``--algorithm sac`` at a tiny size: on the demo
+  data (cube-push), and on a dict-observation env (Go2, seeded data of
+  widths 48 and 12) whose 'state' entry ``SelectObservationWrapper``
+  feeds the policy.  The checkpoint and ``final_params.pkl`` are read by
+  the JAX package in a process where torch cannot be imported; its
+  deterministic policy there gives the port's actions (rtol 1e-5)."""
+  go2 = case.endswith('state')
+  logdir = tmp_path / 'rsr'
+  data = _go2_rsr_files(tmp_path) if go2 else DEMO
+  argv = ['--data_dir', data, '--device', 'cpu', '--logdir', str(logdir),
+          '--num_timesteps', '16', '--num_envs', '4', '--batch_size', '4',
+          '--min_replay_size', '8', '--max_replay_size', '12',
+          '--episode_length', '3', '--num_evals', '2', '--num_eval_envs',
+          '2', '--bandwidth', '2.0']
+  if go2:
+    argv += ['--env', 'Go2JoystickFlatTerrain']
+  make_inference_fn, (norm, net) = rsr_cli.main(argv)
+  obs_size, act_size = (48, 12) if go2 else (23, 5)
+  assert (net.obs_size, net.action_size) == (obs_size, act_size)
+  progress = json.loads((logdir / 'progress.json').read_text())
+  assert [p['step'] for p in progress] == [0, 16]
+  for key in ('training/critic_loss', 'training/actor_loss',
+              'eval/episode_reward'):
+    assert np.isfinite(progress[-1][key]), key
+  assert os.listdir(logdir / 'checkpoints') == ['run_sac_16.pkl']
+  assert float(norm.count) == 16
+
+  pkl = str(logdir / 'final_params.pkl')
+  rng = np.random.default_rng(0)
+  obs = (norm.mean.numpy() + norm.std.numpy()
+         * rng.normal(size=(16, obs_size))).astype(np.float32)
+  np.save(tmp_path / 'obs.npy', obs)
+  env = dict(os.environ, JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
+  done = subprocess.run(
+      [sys.executable, '-c', _JAX_SAC_READER, pkl, str(tmp_path / 'obs.npy'),
+       str(tmp_path / 'act.npy')], env=env, cwd=ROOT, capture_output=True,
+      text=True, timeout=300)
+  assert done.returncode == 0, done.stderr[-2000:]
+  jact = np.load(tmp_path / 'act.npy')
+  normalizer, policy = psac.load_params(pkl)
+  with torch.no_grad():
+    served = psn.make_policy(normalizer, policy, device='cpu')(
+        torch.from_numpy(obs)).numpy()
+    trained = make_inference_fn((norm, net), deterministic=True)(
+        torch.from_numpy(obs), None)[0].numpy()
+  assert jact.shape == (16, act_size) and np.abs(jact).max() > 0
+  np.testing.assert_array_equal(served, trained)
+  np.testing.assert_allclose(served, jact, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize('task', GO2_TASKS)

@@ -1,9 +1,14 @@
 """Environment package: batched substrate, wrappers and registry.
 
 Counterpart of ``rsr_mjx_tpu.envs``.  Registered so far: the two Airbot
-cube-push variants and the Go2 flat-terrain joystick task.  T-push, the
-rough-terrain joystick, getup, handstand and footstand come with later
+cube-push variants, Airbot T-push and the Go2 flat-terrain joystick task.
+The rough-terrain joystick, getup, handstand and footstand come with later
 slices; ``load`` of them raises the unknown-env error.
+
+``get_domain_randomizer(name)`` hands out the env's randomiser, as the JAX
+registry does (both cube-push variants and the Go2 joystick; T-push has
+none), or None.  A randomiser here is ``fn(model, generator, batch_size)``
+and returns one model per env (``Model.batched``).
 """
 
 from __future__ import annotations
@@ -15,13 +20,16 @@ from rsr_mjx_tpu_torch.envs.core import Env, State, Wrapper, init, step
 
 _ENVS: Dict[str, Callable[..., Env]] = {}
 _CONFIGS: Dict[str, Callable[[], Any]] = {}
+_RANDOMIZERS: Dict[str, Optional[Callable]] = {}
 
 
 def register_environment(name: str, ctor: Callable[..., Env],
-                         config_fn: Optional[Callable[[], Any]] = None) -> None:
+                         config_fn: Optional[Callable[[], Any]] = None,
+                         randomizer: Optional[Callable] = None) -> None:
   _ENVS[name] = ctor
   if config_fn is not None:
     _CONFIGS[name] = config_fn
+  _RANDOMIZERS[name] = randomizer
 
 
 def load(name: str, config: Optional[Any] = None, **kwargs) -> Env:
@@ -38,26 +46,38 @@ def get_default_config(name: str):
   return _CONFIGS[name]()
 
 
+def get_domain_randomizer(name: str) -> Optional[Callable]:
+  return _RANDOMIZERS.get(name)
+
+
 def registered_envs() -> Tuple[str, ...]:
   return tuple(sorted(_ENVS))
 
 
 def _register_builtin():
+  from rsr_mjx_tpu_torch.envs.airbot import randomize as airbot_randomize
   from rsr_mjx_tpu_torch.envs.airbot.cube_push import AirbotCubePush
+  from rsr_mjx_tpu_torch.envs.airbot.t_push import AirbotTPush
 
   register_environment(
-      'AirbotCubePush', lambda **kw: AirbotCubePush(variant='rsr', **kw)
+      'AirbotCubePush', lambda **kw: AirbotCubePush(variant='rsr', **kw),
+      randomizer=airbot_randomize.domain_randomize,
   )
   register_environment(
-      'AirbotCubePushTrain', lambda **kw: AirbotCubePush(variant='train', **kw)
+      'AirbotCubePushTrain',
+      lambda **kw: AirbotCubePush(variant='train', **kw),
+      randomizer=airbot_randomize.domain_randomize,
   )
+  register_environment('AirbotTPush', AirbotTPush)
 
+  from rsr_mjx_tpu_torch.envs.go2 import randomize as go2_randomize
   from rsr_mjx_tpu_torch.envs.go2.joystick import Joystick, default_config
 
   register_environment(
       'Go2JoystickFlatTerrain',
       lambda **kw: Joystick(task='flat_terrain', **kw),
       config_fn=default_config,
+      randomizer=go2_randomize.domain_randomize,
   )
 
 
@@ -65,5 +85,6 @@ _register_builtin()
 
 __all__ = [
     'Env', 'State', 'Wrapper', 'core', 'wrappers', 'init', 'step', 'load',
-    'register_environment', 'get_default_config', 'registered_envs',
+    'register_environment', 'get_default_config', 'get_domain_randomizer',
+    'registered_envs',
 ]

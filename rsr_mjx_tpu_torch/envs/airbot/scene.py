@@ -1,4 +1,4 @@
-"""Airbot Play cube-push scene builder (MJCF text).
+"""Airbot Play scene builders (MJCF text): cube-push and T-push.
 
 Counterpart of ``rsr_mjx_tpu/envs/airbot/scene.py``, kept as its own copy:
 the port imports nothing of the JAX package.  The port uses it only to
@@ -8,7 +8,8 @@ compile MJCF.
 
 The arm, table, cube and target marker reproduce the reference scenes
 (test/sf.xml, ppo_train/airbot_training/cube.xml); the builder takes the
-table and cube frictions the two cube-push variants differ in.
+table and cube frictions the two cube-push variants differ in.  The T-push
+scene (T_shape.xml) shares the arm and the table.
 
 Collision groups:
   arm geoms        contype=0 conaffinity=1
@@ -189,6 +190,55 @@ def build_cube_scene(
       <inertial pos="0 0 0" mass="0.5" diaginertia="0.0005333 0.0005333 0.0005333"/>
       <geom name="geom_for_push" type="box" size="0.04 0.04 0.04" {_SOFT} rgba="0.85 0.2 0.15 1"
             friction="{cube_friction} 0.1 0.1" contype="1" conaffinity="0"/>
+    </body>
+  </worldbody>
+{_EQUALITY_AND_ACTUATORS}
+</mujoco>
+"""
+
+
+def build_tshape_scene() -> str:
+  """MJCF for the T-shape push task (reference: T_shape.xml).
+
+  Differences from the cube scene: finer timestep (0.00025, iterations 8),
+  ``inertiafromgeom="true"`` (all inertials recomputed from geoms by the
+  compiler), near-zero finger travel, (1, 0.1, 0.0001) table friction, a
+  static two-box T target and a free two-box T block with tail sites.
+  """
+  # finger classes with locked travel (T_shape.xml:76-80)
+  defaults = _ARM_DEFAULTS.replace(
+      'range="-0.0331 -0.0329"', 'range="-0.001 0.001"'
+  ).replace('range="0.0329 0.0331"', 'range="-0.001 0.001"')
+  return f"""
+<mujoco model="airbot_t_push">
+{_VISUAL}
+  <option timestep="0.00025" iterations="8" integrator="implicitfast" gravity="0 0 -9.81"/>
+  <compiler angle="radian" inertiafromgeom="true"/>
+
+  <default>
+    <geom contype="0" conaffinity="0" condim="4"/>
+{defaults}
+  </default>
+
+  <worldbody>
+{_GROUND}
+{_arm_xml()}
+{_table_xml('1 0.1 0.0001')}
+    <body name="T_target" pos="0.29 0.12 0.805" euler="0 0 0.785398163">
+      <inertial pos="0 -0.03 0" mass="0.5" diaginertia="0.001 0.001 0.001"/>
+      <geom name="base_target" type="box" size="0.075 0.025 0.025" contype="0" conaffinity="0"/>
+      <geom name="vertical_target" type="box" pos="0 -0.075 0" size="0.025 0.05 0.025" contype="0" conaffinity="0"/>
+      <site name="T_target_tail" pos="0.0 -0.1 0.0" size="0.001" type="sphere"/>
+    </body>
+
+    <body name="T_block" pos="0.27 0.1 0.805">
+      <freejoint/>
+      <inertial pos="0 -0.03 0" mass="0.5" diaginertia="0.0000260417 0.0000708333 0.0000708333"/>
+      <geom name="base_block" type="box" {_SOFT} size="0.075 0.025 0.025"
+            friction="1 0.1 0.0001" contype="1" conaffinity="0"/>
+      <geom name="vertical_block" type="box" {_SOFT} pos="0 -0.075 0" size="0.025 0.05 0.025"
+            friction="1 0.1 0.0001" contype="1" conaffinity="0"/>
+      <site name="T_tail" pos="0.0 -0.1 0.0" size="0.001" type="sphere"/>
     </body>
   </worldbody>
 {_EQUALITY_AND_ACTUATORS}

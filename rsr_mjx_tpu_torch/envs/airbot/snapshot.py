@@ -1,4 +1,5 @@
-"""Committed model snapshots of the Airbot cube-push scenes.
+"""Committed model snapshots of the Airbot scenes: both cube-push variants
+and T-push.
 
 The machine that runs the port on the card has no ``mujoco``, so the env
 constructors read the compiled model from ``rsr_mjx_tpu_torch/assets/``
@@ -16,21 +17,33 @@ from __future__ import annotations
 
 import os
 
-from rsr_mjx_tpu_torch.envs.airbot.scene import build_cube_scene
+from rsr_mjx_tpu_torch.envs.airbot.scene import (
+    build_cube_scene, build_tshape_scene)
 from rsr_mjx_tpu_torch.physics import io
 
 # the two cube-push variants: (table friction, cube friction)
 FRICTIONS = {'rsr': (0.4, 1.22), 'train': (1.0, 1.0)}
-# contact slots the solver sees (Model.ncon_sel) in the stored models
+# contact slots the solver sees (Model.ncon_sel) in the stored models:
+# cube-push's and T-push's defaults (t_push.py keeps the JAX env's 32)
 MAX_CONTACTS = 24
+T_PUSH_MAX_CONTACTS = 32
+VARIANTS = tuple(FRICTIONS) + ('t_push',)
 
 
 def path(variant: str) -> str:
-  return os.path.join(io.ASSETS, f'airbot_cube_push_{variant}.npz')
+  """The snapshot of cube-push ``variant`` ('rsr', 'train') or of
+  ``'t_push'``."""
+  name = 'airbot_t_push' if variant == 't_push' else (
+      f'airbot_cube_push_{variant}')
+  return os.path.join(io.ASSETS, f'{name}.npz')
 
 
 def build(variant: str, device='cpu'):
-  """Compile the cube-push scene of ``variant`` with C MuJoCo."""
+  """Compile the scene of ``variant`` with C MuJoCo."""
+  if variant == 't_push':
+    return io.load_model_from_xml(build_tshape_scene(),
+                                  max_contacts=T_PUSH_MAX_CONTACTS,
+                                  device=device)
   table, cube = FRICTIONS[variant]
   return io.load_model_from_xml(
       build_cube_scene(table_friction=table, cube_friction=cube),
@@ -40,7 +53,7 @@ def build(variant: str, device='cpu'):
 
 def main() -> None:
   os.makedirs(io.ASSETS, exist_ok=True)
-  for variant in FRICTIONS:
+  for variant in VARIANTS:
     io.save_model_npz(build(variant), path(variant))
     print('wrote', path(variant))
 

@@ -115,6 +115,11 @@ class Go2Env(core.Env):
   def model(self) -> Model:
     return self._model
 
+  def bind_model(self, model: Model) -> None:
+    """Step with ``model`` from now on: one with the same topology, whose
+    leaves may be per env (domain randomisation)."""
+    self._model = model
+
   @property
   def action_size(self) -> int:
     return self._model.nu

@@ -1,9 +1,11 @@
 """The training wrapper stack over batched envs.
 
 Counterpart of ``rsr_mjx_tpu/envs/wrappers.py``, ``wrap_for_training``'s
-stack without domain randomization:
+stack:
   - BatchWrapper: fixes the batch size (the role of the JAX VmapWrapper;
-    envs here are batched natively);
+    envs here are batched natively), or in its place
+    DomainRandomizationWrapper: binds one model per env (the JAX
+    DomainRandomizationVmapWrapper);
   - CanonicalDtypeWrapper: pins every float tensor to the physics dtype;
   - EpisodeWrapper: step counting, time-limit done, ``truncation``;
   - NonFiniteGuardWrapper: quarantines numerically blown envs and restores
@@ -20,7 +22,9 @@ step never aliases the dicts of the state it came from.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -67,6 +71,39 @@ class BatchWrapper(Wrapper):
   def __init__(self, env: Env, batch_size: int):
     super().__init__(env)
     self.batch_size = batch_size
+
+  def reset(self, generator: torch.Generator) -> State:
+    return self.env.reset(generator, self.batch_size)
+
+
+def _bind_copy(env: Env, model) -> Env:
+  """A copy of the wrapper chain ``env`` whose innermost env steps with
+  ``model``; ``env`` itself is left as it is."""
+  out = copy.copy(env)
+  if isinstance(env, Wrapper):
+    out.env = _bind_copy(env.env, model)
+  else:
+    out.bind_model(model)
+  return out
+
+
+class DomainRandomizationWrapper(Wrapper):
+  """One randomised model per env (JAX DomainRandomizationVmapWrapper).
+
+  ``randomization_fn(model)`` returns a batched model (``Model.batched``
+  leaves with a leading env axis; ``envs.get_domain_randomizer`` with its
+  generator and batch size bound).  It is bound to a copy of ``env``, so
+  env i steps with model i through every auto-reset, and whoever else holds
+  ``env`` (an evaluator) keeps the nominal model.  The batch size is the
+  model's."""
+
+  def __init__(self, env: Env, randomization_fn: Callable):
+    model = randomization_fn(env.model)
+    if model.batch_size is None:
+      raise ValueError('randomization_fn returned a model with no '
+                       'per-env leaves')
+    super().__init__(_bind_copy(env, model))
+    self.batch_size = model.batch_size
 
   def reset(self, generator: torch.Generator) -> State:
     return self.env.reset(generator, self.batch_size)
@@ -269,10 +306,15 @@ class SelectObservationWrapper(Wrapper):
 
 def wrap_for_training(env: Env, episode_length: int = 1000,
                       action_repeat: int = 1, num_envs: int = 1,
-                      qvel_limit: float = 1e3) -> Env:
-  """The JAX package's training stack without domain randomization:
-  Batch → CanonicalDtype → Episode → NonFiniteGuard → AutoReset."""
-  env = BatchWrapper(env, num_envs)
+                      qvel_limit: float = 1e3,
+                      randomization_fn: Optional[Callable] = None) -> Env:
+  """The JAX package's training stack: Batch (DomainRandomization where a
+  ``randomization_fn`` is given; its model's batch size replaces
+  ``num_envs``) → CanonicalDtype → Episode → NonFiniteGuard → AutoReset."""
+  if randomization_fn is None:
+    env = BatchWrapper(env, num_envs)
+  else:
+    env = DomainRandomizationWrapper(env, randomization_fn)
   env = CanonicalDtypeWrapper(env)
   env = EpisodeWrapper(env, episode_length, action_repeat)
   env = NonFiniteGuardWrapper(env, qvel_limit=qvel_limit)

@@ -199,22 +199,26 @@ def _collide_lanes(m: Model, geom_size, gxpos, gxmat):
 
 
 def _combine_params(m: Model, name: str, g1, g2):
-  """mj_contactParam mixing per pair of group ``name``: (friction (P, 5),
-  solref (P, 2), solimp (P, 5))."""
+  """mj_contactParam mixing per pair of group ``name``, in lanes:
+  (friction (P, 5, Bm), solref (P, 2, Bm), solimp (P, 5, Bm)), Bm the
+  number of envs where domain randomisation makes a mixed leaf per env,
+  else 1."""
   p1 = m.geom_priority[g1]
   p2 = m.geom_priority[g2]
   dev = m.device
   const = lambda key, build, dt: statics.table(m, f'pairs.{name}.{key}',
                                                build, dev, dt)
-  pri1 = const('pri1', lambda: p1 > p2, torch.bool)[:, None]
-  pri2 = const('pri2', lambda: p2 > p1, torch.bool)[:, None]
-  nopri = ~(pri1 | pri2)
+  pri1 = const('pri1', lambda: p1 > p2, torch.bool)[:, None, None]
+  pri2 = const('pri2', lambda: p2 > p1, torch.bool)[:, None, None]
+  nopri = ~(pri1 | pri2)  # (P, 1, 1)
   gi1 = const('g1', lambda: g1, torch.long)
   gi2 = const('g2', lambda: g2, torch.long)
-  f1, f2 = m.geom_friction[gi1], m.geom_friction[gi2]
-  sr1, sr2 = m.geom_solref[gi1], m.geom_solref[gi2]
-  si1, si2 = m.geom_solimp[gi1], m.geom_solimp[gi2]
-  mix1, mix2 = m.geom_solmix[gi1][:, None], m.geom_solmix[gi2][:, None]
+  fric, solref = m.lanes('geom_friction'), m.lanes('geom_solref')
+  solimp, solmix = m.lanes('geom_solimp'), m.lanes('geom_solmix')
+  f1, f2 = fric[gi1], fric[gi2]  # (P, 3, Bm)
+  sr1, sr2 = solref[gi1], solref[gi2]
+  si1, si2 = solimp[gi1], solimp[gi2]
+  mix1, mix2 = solmix[gi1][:, None], solmix[gi2][:, None]  # (P, 1, Bm)
 
   denom = mix1 + mix2
   w1 = torch.where(denom > _MJ_MINVAL,
@@ -243,8 +247,9 @@ def _combine_params(m: Model, name: str, g1, g2):
 
 
 def combine_solparams(m: Model):
-  """Per-slot contact solver parameters (friction (ncon, 5), solref
-  (ncon, 2), solimp (ncon, 5)) in slot order; constant within a pair."""
+  """Per-slot contact solver parameters (friction (ncon, 5, Bm), solref
+  (ncon, 2, Bm), solimp (ncon, 5, Bm)) in slot order, constant within a
+  pair; Bm as in ``_combine_params``."""
   fr, sr, si = [], [], []
   for name, tbl in m.pairs:
     if len(tbl) == 0:

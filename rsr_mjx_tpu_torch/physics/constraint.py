@@ -187,9 +187,11 @@ def _kbi(sr: torch.Tensor, dmax: torch.Tensor):
 
 
 class AssembleLeaves(NamedTuple):
-  """Inputs of the assembly.  The six dynamic leaves (qpos, qvel, cdof,
-  cdof_anchor, geom_xpos, geom_xmat) are lanes tensors (…, B); the model
-  leaves carry no batch axis (no domain randomization in this engine yet).
+  """Inputs of the assembly, every one with the batch in the trailing axis.
+  The six dynamic leaves (qpos, qvel, cdof, cdof_anchor, geom_xpos,
+  geom_xmat) are lanes tensors (…, B); the model leaves and the contact
+  parameters mixed from them end in an axis of B where domain
+  randomisation makes them per env, else of 1 (``Model.lanes``).
   """
 
   qpos: torch.Tensor
@@ -221,7 +223,8 @@ def gather_leaves(m: Model, qpos, qvel, cdof, cdof_anchor, geom_xpos,
                   geom_xmat) -> AssembleLeaves:
   """Collect the assembly's inputs: the given lanes dynamic leaves plus the
   per-slot contact solver parameters (mj_contactParam mixing and body
-  invweights, pure functions of model leaves) and the model leaves."""
+  invweights, pure functions of model leaves) and the model leaves, all in
+  lanes (``Model.lanes``)."""
   from rsr_mjx_tpu_torch.physics import collision as _col
 
   if m.ncon:
@@ -231,19 +234,18 @@ def gather_leaves(m: Model, qpos, qvel, cdof, cdof_anchor, geom_xpos,
                        torch.long)
     b2 = statics.table(m, 'contact_body2', lambda: m.geom_bodyid[g2], dev,
                        torch.long)
-    con_invweight = m.body_invweight0[b1][:, 0] + m.body_invweight0[b2][:, 0]
+    inv = m.lanes('body_invweight0')  # (nbody, 2, Bm)
+    con_invweight = inv[b1][:, 0] + inv[b2][:, 0]  # (ncon, Bm)
     con_friction, con_solref, con_solimp = _col.combine_solparams(m)
   else:
-    z = torch.zeros((0,), dtype=qpos.dtype, device=qpos.device)
+    z = torch.zeros((0, 1), dtype=qpos.dtype, device=qpos.device)
     con_friction, con_solref, con_solimp, con_invweight = (
-        z.reshape(0, 5), z.reshape(0, 2), z.reshape(0, 5), z
+        z.reshape(0, 5, 1), z.reshape(0, 2, 1), z.reshape(0, 5, 1), z
     )
   return AssembleLeaves(
-      qpos, qvel, cdof, cdof_anchor, geom_xpos, geom_xmat, m.geom_size,
-      con_friction, con_solref, con_solimp, con_invweight,
-      m.eq_data, m.qpos0, m.dof_invweight0, m.eq_solref, m.eq_solimp,
-      m.dof_solref, m.dof_solimp, m.dof_frictionloss,
-      m.jnt_range, m.jnt_solref, m.jnt_solimp, m.jnt_margin,
+      qpos, qvel, cdof, cdof_anchor, geom_xpos, geom_xmat,
+      m.lanes('geom_size'), con_friction, con_solref, con_solimp,
+      con_invweight, *(m.lanes(f) for f in AssembleLeaves._fields[11:]),
   )
 
 
@@ -252,5 +254,5 @@ def narrowphase_leaves(m: Model, lv: AssembleLeaves):
   frame (ncon, 3, 3, B)."""
   from rsr_mjx_tpu_torch.physics import collision as _col
 
-  return _col._collide_lanes(m, lv.geom_size[..., None], lv.geom_xpos,
+  return _col._collide_lanes(m, lv.geom_size, lv.geom_xpos,
                              lv.geom_xmat)

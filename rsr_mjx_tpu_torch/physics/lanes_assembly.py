@@ -14,8 +14,13 @@ leaves in lanes (``dyn_lanes=True``), in both forms:
     contacts give one normal row each.  Contacts are all the slots (no
     selection, grouped by condim) or the K2-selected ones.
 
-The domain-randomised branch (per-env contact parameters) comes with the
-slice that ports the randomisers.
+Under domain randomisation the per-slot contact parameters may be per env
+(a randomised ``geom_friction``).  K2 then gathers their 13 columns with the
+dynamic features (Fd 13 → 26) and its pair table holds the dof masks alone,
+so its output has the column layout of the JAX package's ``lax.top_k`` +
+one-hot einsum branch for that case (dyn 0:13, parameters 13:26, masks
+from 26); the JAX package leaves its kernel there for a TPU VMEM limit that
+the H100 does not share.
 """
 
 from __future__ import annotations
@@ -49,9 +54,9 @@ def _limit_pattern(m: Model, lim_j: np.ndarray) -> np.ndarray:
 def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
   """Narrow phase + assembly over a batch.
 
-  The six dynamic leaves of ``lv`` (qpos, qvel, cdof, cdof_anchor,
-  geom_xpos, geom_xmat) are lanes tensors (…, B); the model leaves carry no
-  batch axis.
+  Every leaf of ``lv`` ends in the batch axis: B for the six dynamic
+  leaves (qpos, qvel, cdof, cdof_anchor, geom_xpos, geom_xmat) and for
+  domain-randomised model leaves, 1 for shared ones (``gather_leaves``).
 
   ``basis=True`` requires contact selection (``m.ncon_sel``) with uniform
   condim ≥ 2 and returns (J_s (nv, Rs, B), aref_s, D_s, floss_s (Rs, B),
@@ -72,9 +77,8 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
   qpos, qvel = lv.qpos, lv.qvel  # (nq, B), (nv, B)
   B = qpos.shape[-1]
   dtype, dev = qpos.dtype, qpos.device
-  e = lambda x: x[..., None]  # unbatched model leaf → trailing axis 1
   bc = lambda x: x.expand(x.shape[:-1] + (B,))
-  inv0 = e(lv.dof_invweight0)  # (nv, 1)
+  inv0 = lv.dof_invweight0  # (nv, B or 1)
   zrow = lambda r: torch.zeros((r, B), dtype=dtype, device=dev)
   const = lambda name, build, dt=None: statics.table(m, name, build, dev, dt)
 
@@ -87,7 +91,7 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
       raise NotImplementedError('connect/weld equality not yet implemented')
     j1, j2 = int(m.eq_obj1id[q]), int(m.eq_obj2id[q])
     q1adr, v1adr = int(m.jnt_qposadr[j1]), int(m.jnt_dofadr[j1])
-    data = lv.eq_data[q]  # (11,)
+    data = lv.eq_data[q]  # (11, B or 1)
     row = torch.zeros((nv, 1, B), dtype=dtype, device=dev)
     row[v1adr] = 1.0
     if 0 <= j2 < m.njnt and j2 != j1:
@@ -105,8 +109,8 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
       diagA = inv0[v1adr].expand(B)
     J_blocks.append(row)
     pos_blocks.append(pos[None])
-    sr_blocks.append(bc(e(lv.eq_solref[q]))[None])
-    si_blocks.append(bc(e(lv.eq_solimp[q]))[None])
+    sr_blocks.append(bc(lv.eq_solref[q])[None])
+    si_blocks.append(bc(lv.eq_solimp[q])[None])
     diagA_blocks.append(diagA[None])
     floss_blocks.append(zrow(1))
     margin_blocks.append(zrow(1))
@@ -115,10 +119,10 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
   J_blocks.append(torch.eye(nv, dtype=dtype, device=dev)[:, :, None]
                   .expand(nv, nv, B))
   pos_blocks.append(zrow(nv))
-  sr_blocks.append(bc(e(lv.dof_solref)))
-  si_blocks.append(bc(e(lv.dof_solimp)))
+  sr_blocks.append(bc(lv.dof_solref))
+  si_blocks.append(bc(lv.dof_solimp))
   diagA_blocks.append(bc(inv0))
-  floss_blocks.append(bc(e(lv.dof_frictionloss)))
+  floss_blocks.append(bc(lv.dof_frictionloss))
   margin_blocks.append(zrow(nv))
 
   # ---- joint limits (interleaved lo/hi rows per limited joint)
@@ -131,15 +135,15 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
     J_blocks.append(const('limit_pattern', lambda: _limit_pattern(m, lim_j),
                           dtype)[:, :, None].expand(nv, 2 * L, B))
     q = qpos[qadr]  # (L, B)
-    lo = e(lv.jnt_range[lim_t, 0])
-    hi = e(lv.jnt_range[lim_t, 1])
+    lo = lv.jnt_range[lim_t, 0]  # (L, B or 1)
+    hi = lv.jnt_range[lim_t, 1]
     pos_blocks.append(torch.stack([q - lo, hi - q], dim=1).reshape(2 * L, B))
     rep2 = lambda x: torch.repeat_interleave(x, 2, dim=0)
-    sr_blocks.append(bc(e(rep2(lv.jnt_solref[lim_t]))))
-    si_blocks.append(bc(e(rep2(lv.jnt_solimp[lim_t]))))
+    sr_blocks.append(bc(rep2(lv.jnt_solref[lim_t])))
+    si_blocks.append(bc(rep2(lv.jnt_solimp[lim_t])))
     diagA_blocks.append(bc(rep2(inv0[vadr])))
     floss_blocks.append(zrow(2 * L))
-    margin_blocks.append(bc(e(rep2(lv.jnt_margin[lim_t]))))
+    margin_blocks.append(bc(rep2(lv.jnt_margin[lim_t])))
 
   # ---- contacts: narrow phase, then the top-nsel selection (kernel K2)
   # or every slot as it is
@@ -153,34 +157,43 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
     if nsel:
       feat_dyn = torch.cat(
           [dist_l[:, None], pos_l, frame_l.reshape(m.ncon, 9, B)], dim=1
-      ).contiguous()  # (ncon, 13, B)
-      nFd = feat_dyn.shape[1]
+      )  # (ncon, 13, B)
       slot0 = const('pair_slot0', lambda: _pair_slot0(m), torch.long)
-      feat_st = torch.cat([lv.con_friction, lv.con_solref, lv.con_solimp,
-                           lv.con_invweight[:, None]], dim=1)  # (ncon, 13)
-      ptab = torch.cat([feat_st[slot0], dmask_all[slot0]], dim=1).contiguous()
+      st = (lv.con_friction, lv.con_solref, lv.con_solimp,
+            lv.con_invweight[:, None])
+      Bm = max(x.shape[-1] for x in st)
+      feat_st = torch.cat([x.expand(x.shape[:-1] + (Bm,)) for x in st],
+                          dim=1)  # (ncon, 13, B or 1)
+      if Bm == 1:
+        # shared parameters, constant within a pair: a column block of the
+        # pair table
+        ptab = torch.cat([feat_st[slot0, :, 0], dmask_all[slot0]], dim=1)
+      else:
+        # per-env parameters ride with the dynamic features
+        feat_dyn = torch.cat([feat_dyn, feat_st], dim=1)  # (ncon, 26, B)
+        ptab = dmask_all[slot0]
       pair_struct = tuple((P, k, off) for _, P, k, off in C.pair_groups(m))
       sel, _ = _lk.contact_select_lanes(
-          pair_struct, nsel, dist_l.contiguous(), feat_dyn,
-          ptab)  # (nsel, 13+13+nv, B)
+          pair_struct, nsel, dist_l.contiguous(), feat_dyn.contiguous(),
+          ptab.contiguous())  # (nsel, 13 + 13 + nv, B)
       c_dist = sel[:, 0]  # (nc, B)
       c_pos = sel[:, 1:4]  # (nc, 3, B)
       c_frame = sel[:, 4:13]  # (nc, 9, B)
-      sel_st = sel[:, nFd : nFd + 13]
+      sel_st = sel[:, 13:26]
       c_friction = sel_st[:, 0:5]
       c_solref = sel_st[:, 5:7]
       c_solimp = sel_st[:, 7:12]
       c_invw = sel_st[:, 12]
-      dmask = sel[:, nFd + 13 : nFd + 13 + nv]  # (nc, nv, B)
+      dmask = sel[:, 26 : 26 + nv]  # (nc, nv, B)
       groups = [(int(condims[0]), slice(None))]
     else:
       c_dist = dist_l  # (ncon, B)
       c_pos = pos_l  # (ncon, 3, B)
       c_frame = frame_l.reshape(m.ncon, 9, B)
-      c_friction = bc(e(lv.con_friction))
-      c_solref = bc(e(lv.con_solref))
-      c_solimp = bc(e(lv.con_solimp))
-      c_invw = bc(e(lv.con_invweight))
+      c_friction = bc(lv.con_friction)
+      c_solref = bc(lv.con_solref)
+      c_solimp = bc(lv.con_solimp)
+      c_invw = bc(lv.con_invweight)
       dmask = dmask_all[:, :, None]  # (ncon, nv, 1)
       groups = [
           (cd, const(f'condim{cd}_slots',

@@ -74,7 +74,7 @@ def _aaq(axis, angle):
 
 class KinLeaves(NamedTuple):
   """Inputs of the kinematics stage, each with a trailing batch axis of
-  size B (qpos) or 1 (model leaves)."""
+  size B (qpos, domain-randomised model leaves) or 1 (shared leaves)."""
 
   qpos: torch.Tensor
   qpos0: torch.Tensor
@@ -92,13 +92,8 @@ class KinLeaves(NamedTuple):
 
 
 def gather_kin(m: Model, qpos_l: torch.Tensor) -> KinLeaves:
-  """Lanes qpos (nq, B) plus the model leaves with a trailing axis of 1."""
-  e = lambda x: x[..., None]
-  return KinLeaves(
-      qpos_l, e(m.qpos0), e(m.body_pos), e(m.body_quat), e(m.body_ipos),
-      e(m.body_iquat), e(m.body_mass), e(m.jnt_pos), e(m.jnt_axis),
-      e(m.geom_pos), e(m.geom_quat), e(m.site_pos), e(m.site_quat),
-  )
+  """Lanes qpos (nq, B) plus the model leaves in lanes (``Model.lanes``)."""
+  return KinLeaves(qpos_l, *(m.lanes(f) for f in KinLeaves._fields[1:]))
 
 
 class KinOut(NamedTuple):

@@ -86,18 +86,19 @@ class SmoothLeaves(NamedTuple):
 
 def gather_smooth(m: Model, qpos, qvel, ctrl, qfrc_applied, xfrc_applied,
                   kout=None) -> SmoothLeaves:
-  """Lanes state (…, B) and kinematics outputs plus the model leaves with
-  a trailing axis of 1; with no ``kout`` the five kinematics fields are
+  """Lanes state (…, B) and kinematics outputs plus the model leaves in
+  lanes (``Model.lanes``: per env under domain randomisation, else with a
+  trailing axis of 1); with no ``kout`` the five kinematics fields are
   None, to be filled in later (the fused region's inputs)."""
-  e = lambda x: x[..., None]
   kin = ((kout.cdof, kout.cdof_anchor, kout.ximat, kout.xipos,
           kout.subtree_com) if kout is not None else (None,) * 5)
   return SmoothLeaves(
       qpos, qvel, ctrl, qfrc_applied, xfrc_applied, *kin,
-      e(m.body_mass), e(m.body_inertia), e(m.dof_armature),
-      e(m.dof_damping), e(m.jnt_stiffness), e(m.qpos0), e(m.opt.gravity),
-      e(m.actuator_gainprm), e(m.actuator_biasprm), e(m.actuator_gear),
-      e(m.actuator_ctrlrange), e(m.actuator_forcerange),
+      m.lanes('body_mass'), m.lanes('body_inertia'), m.lanes('dof_armature'),
+      m.lanes('dof_damping'), m.lanes('jnt_stiffness'), m.lanes('qpos0'),
+      m.opt.gravity[..., None], m.lanes('actuator_gainprm'),
+      m.lanes('actuator_biasprm'), m.lanes('actuator_gear'),
+      m.lanes('actuator_ctrlrange'), m.lanes('actuator_forcerange'),
   )
 
 

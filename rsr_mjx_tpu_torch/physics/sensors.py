@@ -109,11 +109,11 @@ def _subtree_linvel(m: Model, d: Data, body: int):
   for b in range(body + 1, m.nbody):
     if int(m.body_parentid[b]) in subtree:
       subtree.append(b)
-  mass = m.body_mass[subtree]  # (k,)
+  mass = m.lanes('body_mass')[subtree].t()  # (B or 1, k)
   vels = torch.stack(
       [_point_vel(m, d, b, d.xipos[:, b])[1] for b in subtree], dim=1)
-  tot = torch.clamp(torch.sum(mass), min=1e-12)
-  return torch.sum(vels * mass[None, :, None], dim=1) / tot
+  tot = torch.clamp(torch.sum(mass, dim=1, keepdim=True), min=1e-12)
+  return torch.sum(vels * mass[:, :, None], dim=1) / tot
 
 
 def sensordata(m: Model, d: Data) -> Data:

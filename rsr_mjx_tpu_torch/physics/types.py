@@ -5,7 +5,10 @@ split: *static* topology (numpy arrays and python ints, read by python
 control flow) and *numeric leaves* (float32 tensors on the model's device).
 ``Data`` holds a whole batch of simulation states: every tensor carries a
 leading env axis ``B`` (the JAX package vmaps a per-env ``Data``; the port
-writes the batch axis out).
+writes the batch axis out).  A domain-randomised ``Model`` is one model per
+env: the leaves named in ``Model.batched`` carry a leading env axis
+``(B, ...)``, as the JAX randomisers' batched models do, and the physics
+reads every leaf through ``Model.lanes``.
 """
 
 from __future__ import annotations
@@ -142,7 +145,9 @@ class Model:
 
   ``pairs`` is the static collision pair table: a tuple of
   ``(group_name, int32 array (n, 3) of [geom1, geom2, condim])``.
-  ``names`` maps kind → {name: id}.
+  ``names`` maps kind → {name: id}.  ``batched`` names the numeric leaves
+  that carry a leading env axis (a domain-randomised model, ``with_batched``);
+  every other leaf is shared by all envs.
   """
 
   nq: int
@@ -163,6 +168,7 @@ class Model:
   ncon: int = 0
   ncon_sel: int = 0
   names: Any = None
+  batched: frozenset = frozenset()
 
   def __getattr__(self, name):
     # flat field access (m.body_mass, m.jnt_type) like the JAX Model
@@ -177,18 +183,54 @@ class Model:
   def device(self) -> torch.device:
     return self.qpos0.device
 
+  @property
+  def batch_size(self) -> Optional[int]:
+    """The number of envs of a domain-randomised model, else None."""
+    if not self.batched:
+      return None
+    return self.numeric[min(self.batched)].shape[0]
+
+  def lanes(self, name: str) -> torch.Tensor:
+    """Numeric leaf ``name`` with the batch in the trailing axis, as the
+    lanes stages read it: a batched leaf (B, ...) moved to (..., B), a
+    shared one given a trailing axis of 1."""
+    x = self.numeric[name]
+    return x.movedim(0, -1) if name in self.batched else x[..., None]
+
   def replace(self, **kw) -> 'Model':
     """A copy with the given fields replaced.  Numeric leaves are named
-    flat (``m.replace(geom_friction=f)``, as on the JAX Model); a copy that
+    flat (``m.replace(geom_friction=f)``, as on the JAX Model) and are
+    shared by all envs unless ``batched`` says otherwise; a copy that
     changes numeric leaves only keeps this model's device tables
     (``statics``), which depend on the topology alone."""
     numeric = {k: kw.pop(k) for k in list(kw) if k in NUMERIC_FIELDS}
     if numeric:
       kw['numeric'] = {**self.numeric, **numeric}
+      kw.setdefault('batched', self.batched - set(numeric))
     out = dataclasses.replace(self, **kw)
-    if set(kw) <= {'numeric'} and '_device_tables' in self.__dict__:
+    if set(kw) <= {'numeric', 'batched'} and '_device_tables' in self.__dict__:
       out.__dict__['_device_tables'] = self.__dict__['_device_tables']
     return out
+
+  def with_batched(self, **leaves) -> 'Model':
+    """One model per env: a copy whose given numeric leaves are replaced
+    by arrays with a leading env axis (B, ...), the same B for all.  They
+    may be numpy arrays (the fields a JAX randomiser batches, carried
+    across), and land on this model's device in its dtype."""
+    leaves = {k: torch.as_tensor(v if torch.is_tensor(v) else np.array(v),
+                                 dtype=self.numeric[k].dtype,
+                                 device=self.device)
+              for k, v in leaves.items()}
+    sizes = {self.batch_size} - {None}
+    sizes |= {int(v.shape[0]) for v in leaves.values()}
+    if len(sizes) != 1:
+      raise ValueError(f'batched leaves disagree on the env count: {sizes}')
+    for k, v in leaves.items():
+      shape = self.numeric[k].shape[1 if k in self.batched else 0:]
+      if tuple(v.shape[1:]) != tuple(shape):
+        raise ValueError(f'{k}: batched shape {tuple(v.shape)} does not '
+                         f'extend {tuple(shape)}')
+    return self.replace(**leaves, batched=self.batched | frozenset(leaves))
 
   def to(self, device, dtype: Optional[torch.dtype] = None) -> 'Model':
     """Copy with every numeric leaf on ``device`` (and in ``dtype``: float64

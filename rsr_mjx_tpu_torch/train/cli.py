@@ -8,10 +8,14 @@ the directory ``<logdir>/checkpoints/<step>``; SAC:
 ``<logdir>/checkpoints/run_sac_<step>.pkl``) and ``final_params.pkl`` at
 the end.  SAC on an env with dict observations feeds the policy the
 config's ``policy_obs_key`` entry (``SelectObservationWrapper``).
+``--domain_randomization`` trains on the env's registered randomiser (one
+randomised model per training env; the evaluator keeps the nominal model)
+and refuses an env that has none.
 Experiment-logging sinks and rendering are not ported (ROADMAP item 8).
 
     python -m rsr_mjx_tpu_torch.train.cli --env AirbotCubePushTrain \\
-        [--algorithm ppo|sac] [--device cuda] [--logdir DIR] ...
+        [--algorithm ppo|sac] [--domain_randomization] [--device cuda] \\
+        [--logdir DIR] ...
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                  help='output directory (default: logs/<run>)')
   p.add_argument('--restore_checkpoint_path', default=None,
                  help='a checkpoint directory to start from (PPO)')
+  p.add_argument('--domain_randomization', action='store_true',
+                 help="train on the env's domain randomiser")
   p.add_argument('--seed', type=int, default=0)
   p.add_argument('--device', default='cuda',
                  help="device of the envs and networks ('cpu' for a run "
@@ -65,6 +71,14 @@ def main(argv=None):
   from rsr_mjx_tpu_torch.train import ppo, sac, sac_networks
 
   algo = args.algorithm
+  randomization_fn = None
+  if args.domain_randomization:
+    randomization_fn = envs.get_domain_randomizer(args.env)
+    if randomization_fn is None:
+      raise ValueError(f'{args.env} has no domain randomiser; registered '
+                       'ones: ' + ', '.join(
+                           n for n in envs.registered_envs()
+                           if envs.get_domain_randomizer(n)))
   env = envs.load(args.env, device=args.device)
   eval_env = envs.load(args.env, device=args.device)
   cfg = (configs.ppo_config if algo == 'ppo' else configs.sac_config)(
@@ -102,7 +116,7 @@ def main(argv=None):
         environment=env, eval_env=eval_env, network_factory=network_factory,
         progress_fn=progress_fn, policy_params_fn=policy_params_fn,
         restore_checkpoint_path=args.restore_checkpoint_path, seed=args.seed,
-        device=args.device, **cfg)
+        randomization_fn=randomization_fn, device=args.device, **cfg)
     save_params = checkpoint.save_params
   else:
     obs_key = cfg.pop('policy_obs_key', 'state')
@@ -116,7 +130,7 @@ def main(argv=None):
         environment=env, eval_env=eval_env, network_factory=network_factory,
         progress_fn=progress_fn,
         checkpoint_logdir=os.path.join(ckpt_dir, 'run'), seed=args.seed,
-        device=args.device, **cfg)
+        randomization_fn=randomization_fn, device=args.device, **cfg)
     save_params = sac.save_params
 
   final_path = os.path.join(logdir, 'final_params.pkl')

@@ -16,8 +16,11 @@ initialisation on the CPU (the same on every device), the env reset, the
 rollout noise, the permutations and entropy draws, and the evaluation,
 each its own stream on ``device``.  ``past_data`` (an ``rsr.RSRData``)
 puts the RSR penalty, times ``rsr_loss_scale``, into every minibatch's
-loss.  Multi-GPU training (ROADMAP item 7) and domain randomization
-(item 5) are not ported yet and raise.
+loss.  ``randomization_fn`` (``envs.get_domain_randomizer``) gives the
+training envs one randomised model each, drawn once from the env stream
+before the reset (JAX: ``rando_key, key_env = split(key_env)``); the
+evaluator's envs keep the nominal model, as in JAX.  Multi-GPU training
+(ROADMAP item 7) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -90,6 +93,17 @@ def permutation(n: int, generator: torch.Generator) -> torch.Tensor:
   return torch.randperm(n, generator=generator, device=generator.device)
 
 
+def randomization_bound(randomization_fn: Optional[Callable],
+                        generator: torch.Generator, num_envs: int):
+  """``randomization_fn(model, generator, batch_size)`` with the trainer's
+  env generator and batch size bound, for ``wrap_for_training`` (None
+  stays None)."""
+  if randomization_fn is None:
+    return None
+  return functools.partial(randomization_fn, generator=generator,
+                           batch_size=num_envs)
+
+
 def _generators(seed: int, devices):
   """One generator on each of ``devices``, their seeds drawn from
   ``seed``."""
@@ -146,9 +160,6 @@ def train(
     raise ValueError(f'batch_size * num_minibatches ({batch_size} * '
                      f'{num_minibatches}) is no multiple of num_envs '
                      f'({num_envs})')
-  if randomization_fn is not None:
-    raise NotImplementedError('domain randomization is not ported yet: '
-                              'ROADMAP item 5')
   if devices is not None and len(devices) > 1:
     raise NotImplementedError('training on more than one device is not '
                               'ported yet: ROADMAP item 7')
@@ -163,9 +174,11 @@ def train(
   gen_init, gen_env, gen_act, gen_sgd, gen_eval = _generators(
       seed, ['cpu'] + [device] * 4)
 
-  env = wrappers.wrap_for_training(environment, episode_length=episode_length,
-                                   action_repeat=action_repeat,
-                                   num_envs=num_envs)
+  env = wrappers.wrap_for_training(
+      environment, episode_length=episode_length, action_repeat=action_repeat,
+      num_envs=num_envs,
+      randomization_fn=randomization_bound(randomization_fn, gen_env,
+                                           num_envs))
   obs_size = environment.observation_size
   action_size = environment.action_size
   network = network_factory(obs_size, action_size).init(gen_init).to(device)

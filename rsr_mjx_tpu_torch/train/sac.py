@@ -17,9 +17,10 @@ networks' initialisation on the CPU, the env reset, the acting noise, the
 replay indices, the SGD noise and the evaluation, each its own stream on
 ``device``.  Checkpoints ``<checkpoint_logdir>_sac_<step>.pkl`` and
 ``save_params`` pickle (normalizer, policy layers) in the JAX layout,
-which the JAX ``sac.load_params`` reads without torch.  Multi-GPU training
-(ROADMAP item 7) and domain randomization (item 5) are not ported yet and
-raise.
+which the JAX ``sac.load_params`` reads without torch.
+``randomization_fn`` works as in ``ppo.train``: one randomised model per
+training env, drawn before the reset; none in the evaluator.  Multi-GPU
+training (ROADMAP item 7) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -166,14 +167,12 @@ def train(
 ):
   """Train a SAC policy.  Returns (make_policy, (normalizer, networks),
   metrics), as the JAX ``train``; ``environment`` must live on ``device``.
-  ``wrap_env_fn(env, episode_length=, action_repeat=, num_envs=)`` takes
-  the place of ``wrappers.wrap_for_training``."""
+  ``wrap_env_fn(env, episode_length=, action_repeat=, num_envs=,
+  randomization_fn=)`` takes the place of ``wrappers.wrap_for_training``
+  (the evaluator's call gets no ``randomization_fn``)."""
   if rsr_loss_scale < 0:
     raise ValueError(
         f'rsr_loss_scale must be non-negative, got {rsr_loss_scale}')
-  if randomization_fn is not None:
-    raise NotImplementedError('domain randomization is not ported yet: '
-                              'ROADMAP item 5')
   if devices is not None and len(devices) > 1:
     raise NotImplementedError('training on more than one device is not '
                               'ported yet: ROADMAP item 7')
@@ -196,7 +195,9 @@ def train(
 
   wrap = wrap_env_fn or wrappers.wrap_for_training
   env = wrap(environment, episode_length=episode_length,
-             action_repeat=action_repeat, num_envs=num_envs)
+             action_repeat=action_repeat, num_envs=num_envs,
+             randomization_fn=ppo.randomization_bound(randomization_fn,
+                                                      gen_env, num_envs))
   obs_size = environment.observation_size
   action_size = environment.action_size
   if not isinstance(obs_size, int):

@@ -1,10 +1,11 @@
 """The PyTorch port's model against the JAX package's, and the port's rules.
 
-The port builds the cube-push model from a committed snapshot (numpy
-only); these tests hold that snapshot field by field against the JAX Model
-that C MuJoCo compiles from the same MJCF, against a fresh build by the
-port's own ``put_model``, and check the constraint layout.  All exact:
-both sides take the same float32 values from the compiled MjModel.
+The port builds the Airbot models (both cube-push variants, T-push) from
+committed snapshots (numpy only); these tests hold each snapshot field by
+field against the JAX Model that C MuJoCo compiles from the same MJCF,
+against a fresh build by the port's own ``put_model``, and check the
+constraint layout.  All exact: both sides take the same float32 values
+from the compiled MjModel.
 """
 
 import ast
@@ -24,7 +25,10 @@ from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.physics import types as pT
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENVS = ('AirbotCubePush', 'AirbotCubePushTrain')
+# (nq, nv, nu, ncon, ncon_sel) of each Airbot env's model
+SIZES = {'AirbotCubePush': (22, 20, 5, 480, 24),
+         'AirbotCubePushTrain': (22, 20, 5, 480, 24),
+         'AirbotTPush': (15, 14, 5, 720, 32)}
 
 
 def _np(x):
@@ -52,13 +56,13 @@ def _assert_port_models_equal(a, b):
   assert a.names == b.names
 
 
-@pytest.mark.parametrize('name', ENVS)
+@pytest.mark.parametrize('name', sorted(SIZES))
 def test_model_matches_jax(name):
   jm = jenvs.load(name).model
   pm = penvs.load(name, device='cpu').model
   for f in pT.SIZE_FIELDS + ('ncon', 'ncon_sel'):
     assert getattr(pm, f) == getattr(jm, f), f
-  assert (pm.nq, pm.nv, pm.nu, pm.ncon, pm.ncon_sel) == (22, 20, 5, 480, 24)
+  assert (pm.nq, pm.nv, pm.nu, pm.ncon, pm.ncon_sel) == SIZES[name]
   for f in pT.OPT_TENSOR_FIELDS:
     np.testing.assert_array_equal(_np(getattr(pm.opt, f)),
                                   _np(getattr(jm.opt, f)), err_msg=f)
@@ -81,7 +85,7 @@ def test_model_matches_jax(name):
       k: dict(v) for k, v in jm.names}
 
 
-@pytest.mark.parametrize('variant', ('rsr', 'train'))
+@pytest.mark.parametrize('variant', snapshot.VARIANTS)
 def test_snapshot_round_trip(variant, tmp_path):
   committed = pio.load_model_npz(snapshot.path(variant), device='cpu')
   fresh = snapshot.build(variant)
@@ -91,16 +95,21 @@ def test_snapshot_round_trip(variant, tmp_path):
   _assert_port_models_equal(fresh, pio.load_model_npz(out, device='cpu'))
 
 
-def test_layout_matches_jax():
-  jm = jenvs.load('AirbotCubePushTrain').model
-  pm = penvs.load('AirbotCubePushTrain', device='cpu').model
+@pytest.mark.parametrize('name, rows, pairs', [
+    ('AirbotCubePushTrain', (181, 1, 20, 16, 144), ('box_box', 30, 16, 0)),
+    ('AirbotTPush', (223, 1, 14, 16, 192), ('box_box', 45, 16, 0)),
+])
+def test_layout_matches_jax(name, rows, pairs):
+  """(nefc, n_eq, n_fri, n_lim, n_con) and the pair groups: T-push's 32
+  selected contacts give 32 × 3 axes × 2 = 192 contact rows."""
+  jm = jenvs.load(name).model
+  pm = penvs.load(name, device='cpu').model
   jl, pl = jC.layout_cached(jm), pC.layout_cached(pm)
-  assert (pl.nefc, pl.n_eq, pl.n_fri, pl.n_lim, pl.n_con) == (
-      181, 1, 20, 16, 144)
+  assert (pl.nefc, pl.n_eq, pl.n_fri, pl.n_lim, pl.n_con) == rows
   assert (jl.nefc, jl.n_eq, jl.n_fri, jl.n_lim, jl.n_con) == (
       pl.nefc, pl.n_eq, pl.n_fri, pl.n_lim, pl.n_con)
   np.testing.assert_array_equal(pl.kind, jl.kind)
-  assert pC.pair_groups(pm) == jC.pair_groups(jm) == [('box_box', 30, 16, 0)]
+  assert pC.pair_groups(pm) == jC.pair_groups(jm) == [pairs]
   np.testing.assert_array_equal(pC.contact_dmask(pm), jC.contact_dmask(jm))
 
 

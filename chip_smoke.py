@@ -8,18 +8,21 @@ only the times of K1 and K2 through the public wrappers of the port found
 under DIR, a directory inside this repository that holds another commit of
 it (this tree when DIR is left out): the way to time a parent's kernels and
 this tree's within one call on one card (see wrapper_times).  It imports
-the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Fourteen
-paths are driven.  Four serve a policy run deterministically, each
+the port (``rsr_mjx_tpu_torch``) and nothing of the JAX package.  Nineteen
+paths are driven.  Eight serve a policy run deterministically, each
 through ``envs.load`` → ``wrap_for_training`` → ``env.step``: cube-push
 (``AirbotCubePushTrain``, kernels K1, K2, K3) with a PPO and a SAC policy,
-Airbot T-push (``AirbotTPush``, K1, K2, K3) with a seeded PPO policy, and
-the Go2 joystick (``Go2JoystickFlatTerrain``, kernels K1, K4).  Nine
+Airbot T-push (``AirbotTPush``, K1, K2, K3) with a seeded PPO policy, the
+Go2 joystick (``Go2JoystickFlatTerrain``, kernels K1, K4), and the other
+Go2 tasks (K1, K4): getup, handstand and footstand on the full-collision
+scene (K4 at 366 rows) and the joystick on rough terrain.  Ten
 train: PPO on cube-push through ``ppo.train`` at the tuned width (K1, K2,
 K3 in its rollouts), RSR policy training on cube-push through
 ``rsr.pipeline.policy_params_training`` with the penalty on (K1, K2, K3),
 PPO on the Go2 joystick at its tuned table (K1, K4), the same three
-with SAC (``sac.train``, its replay ring on the card), PPO on T-push, and
-PPO with domain randomisation on cube-push and on the Go2 joystick.  One
+with SAC (``sac.train``, its replay ring on the card), PPO on T-push,
+PPO with domain randomisation on cube-push and on the Go2 joystick, and
+PPO on Go2 getup (K1, K4 at 366 rows).  One
 tunes the
 cube's friction through ``rsr.pipeline.env_params_tuning`` with gradients
 through the step (K1, K2, K3 forward; K1, K2, K4 in the recomputation and
@@ -65,7 +68,7 @@ is printed:
               the card, on the CPU (plain versions) and on the CPU in
               float64; the card must be as close to float64 as the CPU's
               fp32 path is (see reference()).  Then the rollout: cube-push
-              10 control steps of 4 substeps at B = 2048, Go2 25 control
+              10 control steps of 4 substeps at B = 2048, Go2 15 control
               steps of 5 substeps at B = 8192 (the tuned config's
               num_envs).  The kernels' launch counts, zeroed just before
               each rollout, must match the substeps run.  The Go2 rollout
@@ -115,9 +118,9 @@ is printed:
               recomputation on K1, K2, K4; the backward on K1, the IFT
               solve included), in two runs: the demo's command (30
               transitions from 15, k = 1, init 0.4, bounds x0.2 and x10,
-              lr 0.005) for 6 Adam steps and the slip run of
+              lr 0.005) for 4 Adam steps and the slip run of
               tuned_params_slip_k8pd.json (k = 8, per_dim_error, 23
-              windows) for 2.  Per Adam step after the first: seconds from
+              windows) for 1.  Per Adam step after the first: seconds from
               CUDA events, split into the forward and the backward; the
               loss and friction trajectory; one step under torch.profiler
               (device busy time, idle share, kernels).  Checks: at 0.4 (a
@@ -141,12 +144,14 @@ is printed:
               no evaluation inside: ``sac.train`` with
               ``configs.sac_config('AirbotCubePushTrain')`` (1024 envs,
               batch 256, 256 x 256 policy and twin critics, ring of
-              1 000 000, prefill 98 actor steps); ``rsr.pipeline.
+              1 000 000, prefill 12 actor steps, SAC_PREFILL_STEPS,
+              where the table's min_replay_size gives 98); ``rsr.pipeline.
               policy_params_training(algorithm='sac')`` at the RSR CLI's
               table (512 envs, batch 128, 32 x 4, ring 200 000, prefill 20,
               bandwidth 2.0); ``sac.train`` on the Go2 joystick's 'state'
               entry (SelectObservationWrapper) at its SAC table (4096
-              envs, batch 512, 512-256-128, ring 1 000 000, prefill 49).
+              envs, batch 512, 512-256-128, ring 1 000 000, prefill 12 of
+              the table's 49).
               Each: prefill seconds, training/sps, actor-step and SGD-step
               ms (CUDA events, no synchronise), the loss metrics, the
               ring's size, position and bytes on the card; fails on a
@@ -181,8 +186,30 @@ is printed:
               (Fd 26) and K3, or K1 and K4, on the randomised substep's
               inputs at every E; env i keeps model i through an auto-reset
               (dr_train_phase).
- 10. result   one JSON line of the kernels (launches of all fourteen paths),
-              the card's name and power limit, and last the line
+ 10. go2 tasks ``Go2Getup`` (logs/go2_getup_5M_r5), ``Go2Handstand``
+              (logs/go2_handstand_5M_r5), ``Go2Footstand`` (a seeded
+              512-256-128 policy: none is trained) and
+              ``Go2JoystickRoughTerrain`` (logs/go2_joystick_50M_r5, the flat
+              policy on the reference terrain), each served at B = 8192 for
+              25 control steps of 5 substeps (go2_tasks_phase): the reset
+              timed (getup's: a forward and 125 settle substeps, its
+              launches counted); K4 at nv 18, R0 366 on getup's recorded
+              inputs at 1 x 5 and 6 x 6, at every E that fits, on B - 3
+              envs and the first 5 (check_k4_full), at every E on
+              handstand's and footstand's; K1 and K4 (R0 58) on rough
+              terrain's; 256 envs of each task against the CPU in fp32 and
+              float64 for 3 control steps (getup from the served batch's
+              first 256 envs, settled on the card, handed over); the
+              rollout's rates, launches (K1 and K4 once a substep), share
+              upright at the end (getup) and share terminated; for getup
+              and rough terrain one control step under the profiler, host
+              ms per stage with narrowphase_leaves first.  Then one PPO
+              step of getup at its table (8192 envs; launches S + 126 of K1
+              and K4, the settle included) with phase 6's checks, K4 held
+              as check_k4_full holds it, and the evaluator.
+ 11. result   one JSON line of the kernels (launches of all nineteen paths;
+              K1 on the Go2 tasks and K4 at R0 366 with entries of their
+              own), the card's name and power limit, and last the line
               {"ok": true, "device": {...}}.
 """
 
@@ -210,8 +237,9 @@ GO2_ENVS = 8192  # num_envs of the tuned joystick config
 # the joystick's asymmetric actor-critic: policy and value observation keys
 GO2_KEYS = {'obs_key': 'state', 'value_obs_key': 'privileged_state'}
 # control steps of the Go2 rollout, 5 substeps each; cut from 50 to 25 once
-# phase 9 came, to keep the script within 12 minutes
-GO2_STEPS = 25
+# phase 9 came, and to 15 once phase 10 came, to keep the script within 12
+# minutes
+GO2_STEPS = 15
 # a trained policy does not fall within half a second: at most this share
 # of the envs may terminate within GO2_STEPS control steps
 GO2_MAX_DONE_SHARE = 0.05
@@ -776,7 +804,8 @@ def k4_cost(torch, lk, args, x):
                                      fric_m[:, None]).sum(0)
 
 
-def k4_ratios(torch, lk, args, schedules):
+def k4_ratios(torch, lk, args, schedules, one_step_done=None,
+              first_order=None):
   """K4 on one system (the arguments of ``_newton_lanes_core``), per env,
   at each (Newton, line-search) schedule, under K3's criteria:
    - φ(xk) − φ(x64) <= tol·φ(x0), φ >= 0 in float64, x64 the plain version's
@@ -792,16 +821,44 @@ def k4_ratios(torch, lk, args, schedules):
   Returns (max |kernel − plain|, {(who, schedule): (φ, force, qfrc) worst
   error/tolerance over envs}) for the kernel and the plain fp32 version.
   Only the kernel's ratios decide; see worst_kernel for the envs in which
-  the plain version itself misses."""
+  the plain version itself misses.  With ``one_step_done`` (a dict), an
+  env whose float64 solve is done after its first Newton step (later steps
+  lower φ by under 1e-7·φ(x0)) is held to the one-step tolerance at every
+  schedule, as k3_ratios holds K3 (the fp32 accept test cannot resolve
+  that step's rounding); the dict receives the number of such envs.  With
+  ``first_order`` (a dict), a schedule of one Newton step adds to the φ
+  tolerance the first-order change of φ under a perturbation of x by 1024
+  units of fp32 rounding (the force check's allowance),
+  1024·u·Σ|∇φ(x64)||x64|: after one step x is not at the minimum, and
+  with many stiff rows (the full-collision scene's 366) the rounding of x
+  moves φ past 1e-5·φ(x0) in a few envs of 8192, for the plain fp32
+  version as for the kernel; the dict receives the number of envs in
+  which the kernel needed it."""
   kind = args[0]
   a64 = [a.double() for a in args[3:]]
   Jt, areft, Dt = a64[3], a64[4], a64[5]
   phi0 = k4_cost(torch, lk, args, args[5])
   err, ratios = 0.0, {}
+  phi64_1 = None
+  if one_step_done is not None:
+    phi64_1 = k4_cost(torch, lk, args, lk.newton_generic_plain(
+        kind, 1, schedules[0][1], *a64)[0])
   for sched in schedules:
     x64 = lk.newton_generic_plain(kind, *sched, *a64)[0]
     phi64 = k4_cost(torch, lk, args, x64)
     tol_phi = (1e-5 if sched[0] == 1 else 1e-6) * phi0 + 1e-30
+    if phi64_1 is not None and sched[0] > 1:
+      done1 = phi64_1 - phi64 <= 1e-7 * phi0
+      one_step_done[sched] = int(done1.sum().item())
+      tol_phi = torch.where(done1, 1e-5, 1e-6) * phi0 + 1e-30
+    tol_phi_base = tol_phi
+    if first_order is not None and sched[0] == 1:
+      ones_m, fric_m = lk._row_masks(tuple(kind.tolist()), x64.device,
+                                     torch.float64)
+      s64 = lk._penalty_se((Jt * x64[:, None]).sum(0) - areft, Dt, a64[6],
+                           ones_m[:, None], fric_m[:, None])[0]
+      g64 = (a64[0] * (x64 - a64[1])[None]).sum(1) + (Jt * s64[None]).sum(1)
+      tol_phi = tol_phi + 1024 * U32 * (g64.abs() * x64.abs()).sum(0)
     outs = {'plain': lk.newton_generic_plain(kind, *sched, *args[3:]),
             'kernel': lk._newton_lanes_core(kind, *sched, *args[3:])}
     err = max([err] + [(k - p).abs().max().item()
@@ -824,6 +881,8 @@ def k4_ratios(torch, lk, args, schedules):
         ratios[who, sched] = tuple(
             worst_kernel(torch, e, t, p)
             for e, t, p in zip(errs, tols, plain_errs))
+        if first_order is not None and sched[0] == 1:
+          first_order[sched] = int((errs[0] > tol_phi_base).sum().item())
   return err, ratios
 
 
@@ -910,10 +969,12 @@ def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
   cube_ms = time_ms(torch, lambda: lk._newton_lanes_core(*cube_args), 20)
   cube_prof = profiler_ms(torch, lambda: lk._newton_lanes_core(*cube_args),
                           20, 'newton_generic_kernel')
+  cube_plain = time_ms(
+      torch, lambda: lk.newton_generic_plain(*cube_args), 5, 1)
   cube_bound = bound_ms(*k4_work(*cube_args))
   log(f'K4 on the cube-push generic rows, 6 x 6: kernel_ms {cube_ms:.5f} '
-      f'(profiler {cube_prof:.5f}) bound_ms {cube_bound[0]:.5f} '
-      f'({cube_bound[1]})')
+      f'(profiler {cube_prof:.5f}) plain_ms {cube_plain:.5f} bound_ms '
+      f'{cube_bound[0]:.5f} ({cube_bound[1]})')
   row['ok'] = row['ok'] and cube_ok
   if not cube_ok:
     row['ratios'] += ' (cube rows or a ragged batch FAIL)'
@@ -1199,13 +1260,15 @@ STAGES = (
 )
 
 
-def profile_control_step(torch, tag, env, policy, state, step_ms):
+def profile_control_step(torch, tag, env, policy, state, step_ms,
+                         first=None):
   """One control step under torch.profiler: wall time, device busy time,
   device kernels launched, and the host time of each stage.  The idle
   share divides the device busy time by ``step_ms``, the wall time of a
   control step without the profiler (the profiler slows the host, not the
-  device); the share under the profiler is printed beside it.  The full
-  table goes to chiprun_out/profile_<tag>.txt."""
+  device); the share under the profiler is printed beside it.  The stage
+  ``first`` is printed first.  The full table goes to
+  chiprun_out/profile_<tag>.txt."""
   import importlib
 
   from torch.profiler import ProfilerActivity, profile, record_function
@@ -1241,6 +1304,8 @@ def profile_control_step(torch, tag, env, policy, state, step_ms):
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
   stages = {e.key[len('stage.'):]: e.cpu_time_total / 1e3 / e.count
             for e in events if on_host(e) and e.key.startswith('stage.')}
+  if first in stages:
+    stages = {first: stages.pop(first), **stages}
   log(f'{tag} profile: 1 control step, device busy {busy_ms:.3f} ms, idle share '
       f'{1 - busy_ms / step_ms:.4f} of the unprofiled step ({step_ms:.3f} '
       f'ms); under the profiler wall {wall_ms:.3f} ms, idle share '
@@ -1795,21 +1860,24 @@ def rsr_phase(torch, port, lk, card):
   return r.launches
 
 
-def go2_train_phase(torch, port, lk, card):
-  """PPO on the Go2 joystick at the tuned table: ``ppo.train`` with
-  ``configs.ppo_config('Go2JoystickFlatTerrain')`` (8192 envs, batch 256 x
-  32 minibatches, unroll 20, 4 updates, 512-256-128 networks, the value
-  network on ``privileged_state``) for GO2_TRAIN_STEPS training step(s) in
-  one epoch, no evaluation inside (run_training).  Then K1 and K4 on the
-  recorded inputs of the last training substep against their plain
-  versions, the card-vs-CPU SGD check on the first minibatch (dict
-  observations) and the evaluator.  Returns the kernels' launches in
-  training."""
+def go2_train_phase(torch, port, lk, card, name=GO2_ENV, tag='go2 train',
+                    expect=None, k4_check=None):
+  """PPO on the Go2 joystick (or the Go2 task ``name``) at the tuned table:
+  ``ppo.train`` with ``configs.ppo_config('Go2JoystickFlatTerrain')`` (8192
+  envs, batch 256 x 32 minibatches, unroll 20, 4 updates, 512-256-128
+  networks, the value network on ``privileged_state``) for GO2_TRAIN_STEPS
+  training step(s) in one epoch, no evaluation inside (run_training).  Then
+  K1 and K4 on the recorded inputs of the last training substep against
+  their plain versions, the card-vs-CPU SGD check on the first minibatch
+  (dict observations) and the evaluator.  ``expect(S)`` gives the launch
+  counts of S substeps (GO2_TRAIN_LAUNCHES by default), ``k4_check(tag,
+  args)`` K4's row (k4_row at the inputs' schedule by default).  Returns
+  (the kernels' launches in training, K4's row)."""
   import functools
 
-  cfg, nf, per_step = tuned_config(port, GO2_ENV, GO2_TRAIN_STEPS)
+  cfg, nf, per_step = tuned_config(port, name, GO2_TRAIN_STEPS)
   factory = functools.partial(port.networks.make_ppo_networks, **nf)
-  env0 = port.envs.load(GO2_ENV, device=DEV)
+  env0 = port.envs.load(name, device=DEV)
   r = run_training(
       torch, port, lk,
       lambda progress_fn: port.ppo.train(
@@ -1818,34 +1886,36 @@ def go2_train_phase(torch, port, lk, card):
       lambda: factory(env0.observation_size, env0.action_size))
   make_policy, (norm, net), _ = r.out
   n_mb = cfg.num_updates_per_batch * cfg.num_minibatches
-  training_checks(torch, r, 'go2 train', GO2_TRAIN_STEPS, per_step,
+  training_checks(torch, r, tag, GO2_TRAIN_STEPS, per_step,
                   cfg.unroll_length, env0.n_substeps, n_mb, cfg.num_envs,
-                  norm, net, GO2_TRAIN_LAUNCHES, card)
-  B, tag = cfg.num_envs, f'Go2 training, B {cfg.num_envs}'
+                  norm, net, expect or GO2_TRAIN_LAUNCHES, card)
+  B = cfg.num_envs
+  label = f'{"Go2" if name == GO2_ENV else name} training, B {B}'
   k4_args = r.calls['_newton_lanes_core'][-1]
   if k4_args[6].shape[-1] != B:
-    raise SystemExit('go2 train: the recorded kernel inputs are not of '
+    raise SystemExit(f'{tag}: the recorded kernel inputs are not of '
                      'training')
-  report({f'K1 spd_solve_lanes ({tag})': k1_row(
-              torch, lk, tag, r.calls['spd_solve_lanes'][-2:]),
-          f'K4 _newton_lanes_core ({tag})': k4_row(
-              torch, lk, tag, k4_args, [(k4_args[1], k4_args[2])])})
+  k4 = (k4_check or (lambda t, a: k4_row(torch, lk, t, a, [(a[1], a[2])])))(
+      label, k4_args)
+  report({f'K1 spd_solve_lanes ({label})': k1_row(
+              torch, lk, label, r.calls['spd_solve_lanes'][-2:]),
+          f'K4 _newton_lanes_core ({label})': k4})
   del r.calls, k4_args
-  sgd_check(torch, port, r.rec, tag='go2 train')
+  sgd_check(torch, port, r.rec, tag=tag)
   profile_sgd(torch, recorded_sgd_step(torch, port, r.rec, DEV,
                                        torch.float32)[1],
-              sorted(r.sgd_ms)[len(r.sgd_ms) // 2], tag='go2 train')
+              sorted(r.sgd_ms)[len(r.sgd_ms) // 2], tag=tag)
   run_eval(torch, port, env0, make_policy, (norm, net), cfg.episode_length,
-           'go2 train')
-  return r.launches
+           tag)
+  return r.launches, k4
 
 
 # env-parameter tuning on the demo data (logs/rsr_demo_r4/README.md): the
 # demo's command and the slip run of tuned_params_slip_k8pd.json, each cut to
 # a few Adam steps: (tag, first transition, transitions, rollout horizon k,
 # per_dim_error, Adam steps)
-TUNE_RUNS = (('demo', 15, 30, 1, False, 6),
-             ('slip k8pd', 15, 30, 8, True, 2))
+TUNE_RUNS = (('demo', 15, 30, 1, False, 4),
+             ('slip k8pd', 15, 30, 8, True, 1))
 TUNE_INIT, TUNE_LR = 0.4, 0.005
 TUNE_FD_STEP = 1e-4  # the differences of the float64 loss printed beside
 # per substep of a gradient step: the forward K1 twice, K2, K3; the
@@ -2099,15 +2169,16 @@ def k2_grad_check(torch, lk, args):
     raise SystemExit('K2 backward disagrees with the plain gather\'s')
 
 
-def k4_every_E(torch, lk, tag, args):
+def k4_every_E(torch, lk, tag, args, first_order=None):
   """K4 on recorded inputs at every E that fits, under k4_ratios'
-  criteria at the inputs' schedule."""
+  criteria at the inputs' schedule (``first_order``: as k4_ratios)."""
   seen, parts, ok = {}, [], True
   with force_E(lk, None, seen):
     lk._newton_lanes_core(*args)
   for E in seen['fits']:
     with force_E(lk, E):
-      _, r = k4_ratios(torch, lk, args, [(args[1], args[2])])
+      _, r = k4_ratios(torch, lk, args, [(args[1], args[2])],
+                       first_order=first_order)
     parts.append(f'E {E} {max(max(v) for (w, _), v in r.items() if w == "kernel"):.3g}')
     ok = ok and kernel_ok(r)
   log(f'K4 {tag} at every E that fits (chosen {seen["chosen"]}), worst '
@@ -2202,6 +2273,11 @@ def tuning_phase(torch, port, lk, card):
 # SAC training steps of each run (one epoch); cut from 16 to 8 once phase 9
 # came, to keep the script within 12 minutes
 SAC_TRAIN_STEPS = 8
+# actor steps of the replay prefill of the cube-push and Go2 SAC runs: the
+# tables' min_replay_size over num_envs (98 and 49) cut to this once phase 10
+# came, to keep the script within 12 minutes (the ring's capacity, the
+# batch and the widths stay the tables')
+SAC_PREFILL_STEPS = 12
 SAC_PARAMS = os.path.join(ROOT, 'logs', 'cube_sac_500k_r5', 'final_params.pkl')
 # the RSR CLI's SAC table (scripts/rsr_policy_training.py): 512 envs, batch
 # 128, replay 10 000 / 200 000, networks 32 x 4
@@ -2485,7 +2561,9 @@ def sac_config_run(port, env_name, steps):
   cfg = port.configs.sac_config(env_name)
   hidden = tuple(cfg.pop('network_factory')['hidden_layer_sizes'])
   cfg.pop('policy_obs_key', None)
-  prefill = math.ceil(cfg.min_replay_size / cfg.num_envs)
+  prefill = min(math.ceil(cfg.min_replay_size / cfg.num_envs),
+                SAC_PREFILL_STEPS)
+  cfg.min_replay_size = prefill * cfg.num_envs
   cfg.update(num_timesteps=(prefill + steps) * cfg.num_envs, num_evals=0)
   return cfg, hidden, prefill
 
@@ -2616,7 +2694,9 @@ def sac_phase(torch, port, lk, card):
 
 TPUSH_ENV = 'AirbotTPush'
 TPUSH_TRAIN_STEPS = 1  # T-push PPO training steps (81920 env-steps each)
-TPUSH_EVAL_STEPS = 25  # control steps of the evaluator's episode after it
+# control steps of the evaluator's episode after it; cut from 25 to 10 once
+# phase 10 came
+TPUSH_EVAL_STEPS = 10
 DR_TRAIN_STEPS = 1  # PPO training steps with domain randomisation
 # what each randomiser may do to each field it batches, per entry against
 # the nominal model (envs/airbot/randomize.py, envs/go2/randomize.py):
@@ -2875,6 +2955,280 @@ def dr_train_phase(torch, port, lk, card, name):
   return r.launches
 
 
+# -- phase 10: the remaining Go2 tasks ----------------------------------------
+
+GETUP_ENV, HANDSTAND_ENV = 'Go2Getup', 'Go2Handstand'
+FOOTSTAND_ENV, ROUGH_ENV = 'Go2Footstand', 'Go2JoystickRoughTerrain'
+# each task served: (env, trained policy or None for a seeded one, episode
+# length of its config)
+GO2_TASKS = (
+    (GETUP_ENV, os.path.join(ROOT, 'logs', 'go2_getup_5M_r5',
+                             'final_params.pkl'), 300),
+    (HANDSTAND_ENV, os.path.join(ROOT, 'logs', 'go2_handstand_5M_r5',
+                                 'final_params.pkl'), 500),
+    (FOOTSTAND_ENV, None, 500),
+    (ROUGH_ENV, GO2_PARAMS, 1000),
+)
+FULL_SCENE = (GETUP_ENV, HANDSTAND_ENV, FOOTSTAND_ENV)
+TASK_STEPS = 25  # control steps of each task's rollout, 5 substeps each
+GETUP_SETTLE = 125  # substeps of a getup reset: settle_time / sim_dt
+# per substep K1 and K4 once; the reset's forward and its settle
+GETUP_TRAIN_LAUNCHES = lambda S: {
+    'spd_solve_lanes': S + 1 + GETUP_SETTLE, 'contact_select_lanes': 0,
+    'newton_lanes_pyr_t': 0, '_newton_lanes_core': S + 1 + GETUP_SETTLE}
+
+
+def task_policy(torch, port, name, params, device):
+  """The deterministic policy serving task ``name``: the trained pickle
+  ``params``, or (None) PPO networks at the Go2 widths (512-256-128, value
+  on ``privileged_state``) initialised on the CPU from SEED with a fresh
+  normalizer, carried as a ``final_params.pkl`` is: the repo holds no
+  trained footstand policy, so the path is what is checked."""
+  if params is not None:
+    return load_policy(port, params, device, **GO2_KEYS)
+  rs = _port_module('train.running_statistics')
+  nf = port.configs.ppo_config(name).network_factory
+  obs_size = {'state': (45,), 'privileged_state': (94,)}
+  net = port.networks.make_ppo_networks(
+      obs_size, 12,
+      policy_hidden_layer_sizes=tuple(nf.policy_hidden_layer_sizes),
+      value_hidden_layer_sizes=tuple(nf.value_hidden_layer_sizes),
+      policy_obs_key='state', value_obs_key='privileged_state').init(
+          torch.Generator().manual_seed(SEED))
+  normalizer, params = port.networks.ppo_params_to_numpy(
+      rs.init_state(obs_size, 'cpu'), net)
+  return port.networks.make_policy(normalizer, params, device=device,
+                                   **GO2_KEYS)
+
+
+def handover(torch, port, env, data, device, dtype):
+  """A getup State on ``device`` in ``dtype`` from a settled batch ``data``
+  of the card: the reset's info and observation around the same data, no
+  second settle (its float64 and CPU references start where the card's
+  settle ended)."""
+  d = data.map(lambda x: x.to(device, dtype) if x.is_floating_point()
+               else x.to(device))
+  B, nu = d.qpos.shape[0], env.model.nu
+  z = lambda *shape: torch.zeros((B,) + shape, dtype=dtype, device=device)
+  info = {'rng': torch.Generator(device=device).manual_seed(SEED),
+          'last_act': z(nu), 'last_last_act': z(nu)}
+  metrics = {f'reward/{k}': z() for k in env._config.reward_config.scales}
+  return port.envs.State(d, env._get_obs(d, info), z(), z(), metrics, info)
+
+
+def task_rollout(torch, lk, name, env0, env, policy, state, card):
+  """TASK_STEPS control steps of a served Go2 task at B = GO2_ENVS: rates,
+  launches (K1 and K4 once a substep), finite observations of the task's
+  sizes; the share of envs upright at the end (getup: gravity within 0.01
+  of straight down, the env's ``_is_upright``), the share terminated
+  (every task), the guard's trips.  Returns (state, launches, ms per
+  control step)."""
+  B, n_sub = GO2_ENVS, env0.n_substeps
+  zero_launches(lk)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  terminated = torch.zeros(B, dtype=torch.bool, device=DEV)
+  rew_sum, nonfinite = torch.zeros((), device=DEV), torch.zeros((), device=DEV)
+  for _ in range(TASK_STEPS):
+    state = env.step(state, policy(state.obs))
+    rew_sum += state.reward.sum()
+    nonfinite += state.metrics['nonfinite'].sum()
+    terminated |= (state.done > 0) & (state.info['truncation'] == 0)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t
+  launches = dict(lk.LAUNCHES)
+  substeps = TASK_STEPS * n_sub
+  expect = {'spd_solve_lanes': substeps, 'contact_select_lanes': 0,
+            'newton_lanes_pyr_t': 0, '_newton_lanes_core': substeps}
+  if launches != expect:
+    raise SystemExit(f'{name}: launch counts {launches} != {expect}')
+  sizes = env0.observation_size
+  check_finite(torch, (
+      ('state', state.obs['state'], (B,) + sizes['state']),
+      ('privileged_state', state.obs['privileged_state'],
+       (B,) + sizes['privileged_state']),
+      ('qpos', state.data.qpos, (B, env0.model.nq)),
+      ('sensordata', state.data.sensordata, (B, env0.model.nsensordata)),
+      ('reward', rew_sum, None)))
+  extra = ''
+  if name == GETUP_ENV:
+    up = env0._is_upright(env0.get_gravity(state.data)).float().mean()
+    extra = f'share upright at the end {up.item():.5f}; '
+  log(f'go2 tasks: {name} B={B}, {TASK_STEPS} control steps = {substeps} '
+      f'substeps in {wall:.3f} s: {B * TASK_STEPS / wall:.1f} env-steps/s, '
+      f'{wall / substeps * 1e3:.3f} ms/substep; mean reward per step '
+      f'{rew_sum.item() / (B * TASK_STEPS):.4f}; {extra}share terminated '
+      f'{terminated.float().mean().item():.5f}; guard trips '
+      f'{int(nonfinite.item())}; launches {launches}; card {card}')
+  return state, launches, wall / TASK_STEPS * 1e3
+
+
+def check_k4_full(torch, lk, tag, args):
+  """K4 at nv 18, R0 366 (the full-collision scene) on its recorded inputs
+  under k4_ratios' criteria: at 6 x 6 the full-schedule criterion
+  (1e-6·φ(x0)), an env whose float64 solve is done after one Newton step
+  held to 1e-5 (``one_step_done``); at the path's 1 x 5 the one-step tolerance with the
+  first-order allowance (``first_order``); the number of envs each rule
+  took printed.  Also at every E that fits, on the batch cut by 3 envs and
+  on its first 5 envs (1 x 5); the shared memory of the E chosen; times
+  by E and by schedule.  Returns K4's row."""
+  nv, R0, B = args[6].shape
+  scheds = [(args[1], args[2]), (6, 6)]
+  done1, first = {}, {}
+  err, ratios = k4_ratios(torch, lk, args, scheds, done1, first)
+  seen = {}
+  with force_E(lk, None, seen):
+    lk._newton_lanes_core(*args)
+  log(f'K4 {tag}: nv {nv}, R0 {R0}, B {B}; E {seen["chosen"]} of '
+      f'{seen["fits"]}, {lk.newton_generic_smem_bytes(nv, R0, seen["chosen"])}'
+      f' bytes of shared memory a block (limit {lk._SMEM_LIMIT}); envs whose '
+      f'float64 solve is done after one Newton step (held to 1e-5 at 6 x 6): '
+      f'{done1[6, 6]} of {B}; envs in which the kernel needed the '
+      f'first-order allowance at {scheds[0][0]} x {scheds[0][1]}: '
+      f'{first[scheds[0]]} of {B}')
+  ok = kernel_ok(ratios)
+  for what, envs in (('ragged', slice(None, -3)), ('first 5', slice(None, 5))):
+    cut = cut_batch(torch, args, envs)
+    cerr, cratios = k4_ratios(torch, lk, cut, scheds[:1], first_order={})
+    log(f'K4 {tag} {what} (B {cut[6].shape[-1]}): max |kernel - plain| '
+        f'{cerr:.3e}; {fmt_ratios(cratios)} '
+        f'{"ok" if kernel_ok(cratios) else "FAIL"}')
+    ok = ok and kernel_ok(cratios)
+  ok = k4_every_E(torch, lk, tag, args, first_order={}) and ok
+  run = lambda: lk._newton_lanes_core(*args)
+  name = 'newton_generic_kernel'
+  e_sweep(torch, lk, f'K4 {tag}', run, name)
+  schedule_split(torch, f'K4 {tag}',
+                 lambda it, ls: lk._newton_lanes_core(args[0], it, ls,
+                                                      *args[3:]),
+                 args[1], args[2], name)
+  return dict(
+      max_abs_err=err, profiler_ms=profiler_ms(torch, run, 50, name), ok=ok,
+      ratios=fmt_ratios(ratios), work=k4_work(*args),
+      ms=time_ms(torch, run, 50),
+      plain_ms=time_ms(torch, lambda: lk.newton_generic_plain(*args), 5, 1),
+      library_ms=None,
+      note=f'nv {nv}, R0 {R0}, B {B}, schedule {scheds[0][0]} x '
+           f'{scheds[0][1]}; per env: phi(xk) within 1e-5 phi(x0) plus '
+           '1024u of the first-order change (1 Newton step), within 1e-6 '
+           '(6 x 6; 1e-5 where float64 is done after one step) of the '
+           'float64 solve; force and qfrc as k4_row',
+  )
+
+
+def go2_tasks_phase(torch, port, lk, card):
+  """10: the remaining Go2 tasks.  Each of getup (``logs/go2_getup_5M_r5``),
+  handstand (``logs/go2_handstand_5M_r5``), footstand (a seeded policy,
+  task_policy) and the rough-terrain joystick (``logs/go2_joystick_50M_r5``)
+  served through ``envs.load`` -> ``wrap_for_training`` at B = GO2_ENVS,
+  deterministically: the reset timed (getup: a forward and 125 settle
+  substeps, launches counted), the kernels of one control step against
+  their plain versions (K4 at R0 366 on getup's inputs by check_k4_full,
+  at every E on handstand's and footstand's; K1 on getup's and rough
+  terrain's; K4 at R0 58 on rough terrain's), 256 envs against the CPU in
+  fp32 and float64 for 3 control steps (getup from the first 256 envs of
+  the served batch, settled on the card and handed over), TASK_STEPS
+  control steps (task_rollout) and, for getup and rough terrain (handstand
+  and footstand run getup's scene and stages), one more under the
+  profiler.  Then one PPO step of getup at its table (8192
+  envs) and the evaluator (go2_train_phase).  Returns (launches of all
+  paths, launches of the full-scene paths, K1's row, K4's row at R0
+  366)."""
+  total, full = {}, {}
+  add = lambda acc, l: acc.update({k: acc.get(k, 0) + v for k, v in l.items()})
+  quiet = {'noise_config.level': 0.0}
+  n = REF_ENVS
+  rows, k1, k4 = {}, None, None
+  for name, params, length in GO2_TASKS:
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    env0 = port.envs.load(name, device=DEV)
+    env = port.wrappers.wrap_for_training(env0, episode_length=length,
+                                          num_envs=GO2_ENVS)
+    policy = task_policy(torch, port, name, params, DEV)
+    zero_launches(lk)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = env.reset(gen)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t
+    settle = GETUP_SETTLE if name == GETUP_ENV else 0
+    launches = dict(lk.LAUNCHES)
+    expect = {'spd_solve_lanes': 1 + settle, 'contact_select_lanes': 0,
+              'newton_lanes_pyr_t': 0, '_newton_lanes_core': 1 + settle}
+    m = env0.model
+    log(f'go2 tasks: {name} nq {m.nq}, nv {m.nv}, {m.ncon} contact slots, '
+        f'nefc {_port_module("physics.constraint").layout_cached(m).nefc}; '
+        f'reset of '
+        f'{GO2_ENVS} envs {reset_s:.3f} s (a forward'
+        + (f' and {settle} settle substeps' if settle else '')
+        + f'); launches {launches}')
+    if launches != expect:
+      raise SystemExit(f'{name} reset: launch counts {launches} != {expect}')
+    add(total, launches)
+    if name in FULL_SCENE:
+      add(full, launches)
+
+    calls = record_calls(lk, lambda: env.step(state, policy(state.obs)),
+                         keep=2)
+    k4_args = calls['_newton_lanes_core'][-1]
+    tag = f'{name}, B {GO2_ENVS}'
+    if name == GETUP_ENV:
+      k4 = check_k4_full(torch, lk, tag, k4_args)
+      k1 = k1_row(torch, lk, tag, calls['spd_solve_lanes'][-2:])
+      rows[f'K4 _newton_lanes_core ({tag})'] = k4
+      rows[f'K1 spd_solve_lanes ({tag})'] = k1
+    elif name == ROUGH_ENV:
+      rows[f'K4 _newton_lanes_core ({tag})'] = k4_row(
+          torch, lk, tag, k4_args, [(k4_args[1], k4_args[2])])
+      rows[f'K1 spd_solve_lanes ({tag})'] = k1_row(
+          torch, lk, tag, calls['spd_solve_lanes'][-2:])
+      if not k4_every_E(torch, lk, tag, k4_args):
+        raise SystemExit(f'{name}: K4 fails at some E')
+    elif not k4_every_E(torch, lk, tag, k4_args, first_order={}):
+      raise SystemExit(f'{name}: K4 fails at some E')
+    del calls, k4_args
+    report({k: v for k, v in rows.items() if 'bound_ms' not in v})
+
+    pol_cpu = task_policy(torch, port, name, params, 'cpu')
+    if name == GETUP_ENV:
+      # the first n envs of the served batch, settled by its reset
+      settled = state.data.map(lambda x: x[:n])
+
+      def make_envs(device, dtype, name=name, settled=settled):
+        e = port.envs.load(name, device=device, dtype=dtype,
+                           config_overrides=quiet)
+        return e, handover(torch, port, e, settled, device, dtype)
+    else:
+      init = env0.sample_init(gen, n)
+
+      def make_envs(device, dtype, name=name, init=init):
+        e = port.envs.load(name, device=device, dtype=dtype,
+                           config_overrides=quiet)
+        g = torch.Generator(device=device).manual_seed(SEED)
+        return e, e.reset_to({k: v.to(device) for k, v in init.items()}, g)
+
+    reference(torch, name, make_envs, policy, pol_cpu,
+              lambda s: s.obs['privileged_state'], lambda s: s.obs['state'])
+    state, launches, step_ms = task_rollout(torch, lk, name, env0, env,
+                                            policy, state, card)
+    add(total, launches)
+    if name in FULL_SCENE:
+      add(full, launches)
+    if name in (GETUP_ENV, ROUGH_ENV):  # handstand, footstand: getup's scene
+      profile_control_step(torch, f'go2_{name[3:].lower()}', env, policy,
+                           state, step_ms, first='narrowphase_leaves')
+    del env0, env, policy, state
+
+  launches, _ = go2_train_phase(
+      torch, port, lk, card, name=GETUP_ENV, tag='getup train',
+      expect=GETUP_TRAIN_LAUNCHES,
+      k4_check=lambda t, a: check_k4_full(torch, lk, t, a))
+  add(total, launches)
+  add(full, launches)
+  return total, full, k1, k4
+
+
+
 def wrapper_times(torch, port, card) -> None:
   """The mode ``--wrapper-times [DIR]``: K1 at both paths' shapes and K2,
   through ``spd_solve_lanes`` and ``contact_select_lanes`` of the port
@@ -3086,7 +3440,7 @@ def main() -> int:
   phase_done(5)
 
   # -- 6. PPO on the Go2 joystick
-  g_t_launches = go2_train_phase(torch, port, lk, card)
+  g_t_launches = go2_train_phase(torch, port, lk, card)[0]
   phase_done(6)
 
   # -- 7. env-parameter tuning on cube-push
@@ -3106,14 +3460,32 @@ def main() -> int:
   dr_launches.append(dr_train_phase(torch, port, lk, card, GO2_ENV))
   phase_done(9)
 
-  # -- 10. result
+  # -- 10. the remaining Go2 tasks: getup, handstand, footstand, rough
+  # terrain served; getup trained
+  task_launches, full_launches, k1_tasks, k4_full = go2_tasks_phase(
+      torch, port, lk, card)
+  phase_done(10)
+
+  # -- 11. result
   log('kernels: ' + ', '.join(f'{v[0]} {k}' for k, v in KERNELS.items()))
+  # phase 10's K4 launches at the full scene's R0 366 have an entry of their
+  # own; its rough-terrain launches are at the Go2 rows' R0 58; its K1
+  # launches (n 18 on both scenes) have an entry of their own
+  rough_k4 = {'_newton_lanes_core': task_launches['_newton_lanes_core']
+              - full_launches['_newton_lanes_core']}
+  entries = [(name, rows[name], sum(phase.get(name, 0) for phase in (
+      launches, g_launches, t_launches, r_launches, g_t_launches,
+      tune_launches, sac_launches, *dr_launches, rough_k4)))
+             for name in KERNELS]
+  entries += [
+      ('spd_solve_lanes [Go2 tasks, n 18]', k1_tasks,
+       task_launches['spd_solve_lanes']),
+      ('_newton_lanes_core [Go2 full collision, nv 18, R0 366]', k4_full,
+       full_launches['_newton_lanes_core']),
+  ]
   out = []
-  for name, (short, src, tpu) in KERNELS.items():
-    r = rows[name]
-    count = sum(phase[name] for phase in (
-        launches, g_launches, t_launches, r_launches, g_t_launches,
-        tune_launches, sac_launches, *dr_launches))
+  for name, r, count in entries:
+    short, src, tpu = KERNELS[name.split(' ')[0]]
     if count <= 0:
       raise SystemExit(f'{name} was launched by no path')
     # ms and library_ms are device times from torch.profiler (the kernel by

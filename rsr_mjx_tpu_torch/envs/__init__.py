@@ -1,12 +1,11 @@
 """Environment package: batched substrate, wrappers and registry.
 
-Counterpart of ``rsr_mjx_tpu.envs``.  Registered so far: the two Airbot
-cube-push variants, Airbot T-push and the Go2 flat-terrain joystick task.
-The rough-terrain joystick, getup, handstand and footstand come with later
-slices; ``load`` of them raises the unknown-env error.
+Counterpart of ``rsr_mjx_tpu.envs``, with every env of its registry: the
+two Airbot cube-push variants, Airbot T-push, and the Go2 joystick on flat
+and on rough terrain, getup, handstand and footstand.
 
 ``get_domain_randomizer(name)`` hands out the env's randomiser, as the JAX
-registry does (both cube-push variants and the Go2 joystick; T-push has
+registry does (both cube-push variants and every Go2 task; T-push has
 none), or None.  A randomiser here is ``fn(model, generator, batch_size)``
 and returns one model per env (``Model.batched``).
 """
@@ -70,15 +69,23 @@ def _register_builtin():
   )
   register_environment('AirbotTPush', AirbotTPush)
 
+  from rsr_mjx_tpu_torch.envs.go2 import getup, handstand, joystick
   from rsr_mjx_tpu_torch.envs.go2 import randomize as go2_randomize
-  from rsr_mjx_tpu_torch.envs.go2.joystick import Joystick, default_config
 
-  register_environment(
-      'Go2JoystickFlatTerrain',
-      lambda **kw: Joystick(task='flat_terrain', **kw),
-      config_fn=default_config,
-      randomizer=go2_randomize.domain_randomize,
+  go2 = (
+      ('Go2JoystickFlatTerrain',
+       lambda **kw: joystick.Joystick(task='flat_terrain', **kw),
+       joystick.default_config),
+      ('Go2JoystickRoughTerrain',
+       lambda **kw: joystick.Joystick(task='rough_terrain', **kw),
+       joystick.default_config),
+      ('Go2Getup', getup.Getup, getup.default_config),
+      ('Go2Handstand', handstand.Handstand, handstand.default_config),
+      ('Go2Footstand', handstand.Footstand, handstand.default_config),
   )
+  for name, ctor, config_fn in go2:
+    register_environment(name, ctor, config_fn=config_fn,
+                         randomizer=go2_randomize.domain_randomize)
 
 
 _register_builtin()

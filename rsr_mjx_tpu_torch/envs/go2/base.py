@@ -6,8 +6,11 @@ sensor accessors the tasks use.  The model comes from the committed
 snapshot (``snapshot.py``), so the env runs where ``mujoco`` is not
 installed; the config's values are applied to the loaded ``Model``
 (``dof_invweight0`` and ``body_invweight0`` do not depend on them: MuJoCo
-computes both from inertia and armature).  The render-only model of the JAX
-env is left out.
+computes both from inertia and armature).  ``task`` names the scene:
+``flat_terrain`` (feet-only), ``rough_terrain`` (feet-only on the
+reference heightfield) or ``full_flat`` (full collision, for getup,
+handstand and footstand).  The render-only model of the JAX env
+(``go2/visual.py``) is left out.
 """
 
 from __future__ import annotations
@@ -108,6 +111,44 @@ class Go2Env(core.Env):
     """(B, 4, 3) foot positions in the imu frame."""
     return torch.stack(
         [self._sensor(data, name) for name in FEET_POS_SENSOR], dim=1)
+
+  # ----- random draws
+
+  def _rand(self, generator: torch.Generator, shape) -> torch.Tensor:
+    """U[0, 1) of ``shape``, drawn on the generator's device, on the
+    model's device and in the physics dtype."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u.to(self._model.device, self._model.qpos0.dtype)
+
+  def _uniform(self, generator, shape, lo, hi) -> torch.Tensor:
+    return lo + (hi - lo) * self._rand(generator, shape)
+
+  def _noisy(self, generator, x: torch.Tensor, scale: float) -> torch.Tensor:
+    """x plus uniform noise of half-width level·scale (the tasks' ``noisy``)."""
+    level = self._config.noise_config.level
+    return x + (2 * self._rand(generator, x.shape) - 1) * (level * scale)
+
+  def _soft_limits(self, factor: float):
+    """Soft joint limits about the middle of each leg joint's range:
+    centre ± half the range times ``factor`` (getup and handstand)."""
+    jr = self._model.jnt_range[1:]
+    lo, hi = jr[:, 0], jr[:, 1]
+    c, r = (lo + hi) / 2, hi - lo
+    return c - 0.5 * r * factor, c + 0.5 * r * factor
+
+  def _torso_height(self, data: Data) -> torch.Tensor:
+    return data.site_xpos[:, self._imu_site_id, 2]
+
+  def _privileged_tail(self, data: Data) -> torch.Tensor:
+    """The sensor block getup and handstand append to the policy state for
+    the critic (49 values): gyro, accelerometer, local linvel, global
+    angvel, joint angles and velocities, actuator forces, torso height."""
+    return torch.cat([
+        self.get_gyro(data), self.get_accelerometer(data),
+        self.get_local_linvel(data), self.get_global_angvel(data),
+        data.qpos[:, 7:], data.qvel[:, 6:], data.actuator_force,
+        self._torso_height(data)[:, None],
+    ], dim=-1)
 
   # ----- Env interface
 

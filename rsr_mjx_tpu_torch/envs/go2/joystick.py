@@ -153,15 +153,6 @@ class Joystick(go2_base.Go2Env):
 
   # ----- random draws ---------------------------------------------------
 
-  def _rand(self, generator: torch.Generator, shape) -> torch.Tensor:
-    """U[0, 1) of ``shape``, drawn on the generator's device, on the
-    model's device and in the physics dtype."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    return u.to(self._model.device, self._model.qpos0.dtype)
-
-  def _uniform(self, generator, shape, lo, hi) -> torch.Tensor:
-    return lo + (hi - lo) * self._rand(generator, shape)
-
   def _exponential(self, generator, shape) -> torch.Tensor:
     return -torch.log1p(-self._rand(generator, shape))
 

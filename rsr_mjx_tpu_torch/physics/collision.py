@@ -7,12 +7,15 @@ separated candidates.  Each 3-vector is a python list of three (P, B)
 tensors (P pairs, B envs), so each primitive is one elementwise op over
 the whole batch.
 
-Ported pair groups: box_box, the only one the Airbot cube scene has
-(30 pairs × 16 probes = 480 slots), and plane_sphere, the only one the Go2
-flat-terrain scene has (four feet against the floor, 4 slots).  The other
-groups (plane-box, plane-capsule, sphere and capsule pairs, the
-heightfield) raise ``NotImplementedError`` naming the pair; they come with
-T-push and the remaining Go2 tasks.
+Every pair group of the JAX package is here, op for op with its fp32
+thresholds: plane_sphere, plane_capsule, plane_box, sphere_sphere,
+sphere_capsule, sphere_box, capsule_capsule, capsule_box, box_box and the
+heightfield against a sphere (hfield_sphere, a bilinear sample of
+``Model.hfield_data``).  The Airbot cube scenes run box_box; the Go2
+feet-only scene plane_sphere; the Go2 full-collision scene plane_sphere,
+plane_capsule, sphere_sphere, sphere_capsule and capsule_capsule; the Go2
+rough scene hfield_sphere.  plane_box, sphere_box and capsule_box have no
+registered env.
 
 Contact convention (MuJoCo): ``frame[0]`` is the normal from geom1 towards
 geom2; ``dist < 0`` means penetration; ``pos`` is the midpoint between the
@@ -63,14 +66,25 @@ def _matTvec(M, v):
   return [M[0][j] * v[0] + M[1][j] * v[1] + M[2][j] * v[2] for j in range(3)]
 
 
-def _safe_normalize_v(v):
-  """(v/‖v‖, ‖v‖) with zero output at v = 0."""
+def _safe_norm_v(v):
+  """‖v‖, 0 at v = 0 with a finite gradient there (a where on both sides
+  of the square root)."""
   sq = _dot(v, v)
   is_zero = sq < _MJ_MINVAL
-  n = torch.where(is_zero, torch.zeros_like(sq),
-                  torch.sqrt(torch.where(is_zero, torch.ones_like(sq), sq)))
+  return torch.where(is_zero, torch.zeros_like(sq),
+                     torch.sqrt(torch.where(is_zero, torch.ones_like(sq), sq)))
+
+
+def _safe_normalize_v(v):
+  """(v/‖v‖, ‖v‖) with zero output at v = 0."""
+  n = _safe_norm_v(v)
   inv = 1.0 / torch.where(n < _MJ_MINVAL, torch.ones_like(n), n)
   return _scale(v, inv), n
+
+
+def _clip(x, lo, hi):
+  """jnp.clip: max with ``lo``, then min with ``hi``."""
+  return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def _make_frame(n):
@@ -98,8 +112,7 @@ def _point_box(v, pb, mb, sb):
   −(least face margin), n = −outward normal of that face (first-axis
   tie-break)."""
   local = _matTvec(mb, _sub(v, pb))
-  clamped = [torch.minimum(torch.maximum(local[j], -sb[j]), sb[j])
-             for j in range(3)]
+  clamped = [_clip(local[j], -sb[j], sb[j]) for j in range(3)]
   odir, out_d = _safe_normalize_v(_sub(local, clamped))
   inside = out_d < _MJ_MINVAL
 
@@ -149,7 +162,186 @@ def _plane_sphere(p1, m1, s1, p2, m2, s2):
   return [(dist, pos, n)]
 
 
-_GROUP_FN = {'box_box': _box_box, 'plane_sphere': _plane_sphere}
+def _plane_capsule(p1, m1, s1, p2, m2, s2):
+  """Two slots per pair: each end of the capsule's segment."""
+  n = [m1[i][2] for i in range(3)]
+  axis = [m2[i][2] for i in range(3)]
+  r, half = s2[0], s2[1]
+  out = []
+  for sgn in (1.0, -1.0):
+    e = _add(p2, _scale(axis, sgn * half))
+    dist = _dot(e, n) - _dot(n, p1) - r
+    pos = _sub(e, _scale(n, r + 0.5 * dist))
+    out.append((dist, pos, n))
+  return out
+
+
+def _plane_box(p1, m1, s1, p2, m2, s2):
+  """All 8 corners are slots (separated ones are inert downstream)."""
+  n = [m1[i][2] for i in range(3)]
+  d0 = _dot(n, p1)
+  out = []
+  for sg in _SIGNS:
+    c = _box_corner(p2, m2, s2, sg)
+    dist = _dot(c, n) - d0
+    pos = _sub(c, _scale(n, 0.5 * dist))
+    out.append((dist, pos, n))
+  return out
+
+
+def _sphere_sphere_at(p1, r1, p2, r2):
+  n, l = _safe_normalize_v(_sub(p2, p1))
+  dist = l - r1 - r2
+  pos = _add(p1, _scale(n, r1 + 0.5 * dist))
+  return dist, pos, n
+
+
+def _sphere_sphere(p1, m1, s1, p2, m2, s2):
+  return [_sphere_sphere_at(p1, s1[0], p2, s2[0])]
+
+
+def _closest_on_segment(p, a, axis, half):
+  t = _clip(_dot(_sub(p, a), axis), -half, half)
+  return _add(a, _scale(axis, t))
+
+
+def _sphere_capsule(p1, m1, s1, p2, m2, s2):
+  axis = [m2[i][2] for i in range(3)]
+  c = _closest_on_segment(p1, p2, axis, s2[1])
+  return [_sphere_sphere_at(p1, s1[0], c, s2[0])]
+
+
+def _sphere_box(p1, m1, s1, p2, m2, s2):
+  dist_c, n = _point_box(p1, p2, m2, s2)
+  r = s1[0]
+  dist = dist_c - r
+  pos = _add(p1, _scale(n, r + 0.5 * dist))
+  return [(dist, pos, n)]
+
+
+def _capsule_box(p1, m1, s1, p2, m2, s2):
+  """Two slots per pair: each end of the capsule's segment against the
+  box."""
+  axis = [m1[i][2] for i in range(3)]
+  r, half = s1[0], s1[1]
+  out = []
+  for sgn in (1.0, -1.0):
+    e = _add(p1, _scale(axis, sgn * half))
+    dc, n = _point_box(e, p2, m2, s2)
+    dist = dc - r
+    pos = _add(e, _scale(n, r + 0.5 * dist))
+    out.append((dist, pos, n))
+  return out
+
+
+def _segment_segment(a1, u1, h1, a2, u2, h2):
+  """Closest points of two segments (centres a, unit directions u, half
+  lengths h).  Near-parallel segments (|1 − (u1·u2)²| <= 1e-9, decided in
+  the working precision) start from s = 0."""
+  d = _sub(a1, a2)
+  b = _dot(u1, u2)
+  e = _dot(u1, d)
+  f = _dot(u2, d)
+  denom = 1.0 - b * b
+  ok = torch.abs(denom) > 1e-9
+  s = torch.where(ok, (b * f - e) / torch.where(ok, denom,
+                                                torch.ones_like(denom)),
+                  torch.zeros_like(denom))
+  s = _clip(s, -h1, h1)
+  t = _clip(b * s + f, -h2, h2)
+  s = _clip(b * t - e, -h1, h1)
+  return _add(a1, _scale(u1, s)), _add(a2, _scale(u2, t))
+
+
+def _capsule_capsule(p1, m1, s1, p2, m2, s2):
+  u1 = [m1[i][2] for i in range(3)]
+  u2 = [m2[i][2] for i in range(3)]
+  c1, c2 = _segment_segment(p1, u1, s1[1], p2, u2, s2[1])
+  return [_sphere_sphere_at(c1, s1[0], c2, s2[0])]
+
+
+_GROUP_FN = {
+    'plane_sphere': _plane_sphere,
+    'plane_capsule': _plane_capsule,
+    'plane_box': _plane_box,
+    'sphere_sphere': _sphere_sphere,
+    'sphere_capsule': _sphere_capsule,
+    'sphere_box': _sphere_box,
+    'capsule_capsule': _capsule_capsule,
+    'capsule_box': _capsule_box,
+    'box_box': _box_box,
+}
+
+
+def _hfield_sphere(m: Model, tbl, geom_size, gxpos, gxmat):
+  """Heightfield against sphere, one slot per pair: the bilinear height
+  of the cell under the sphere's centre (clipped to the grid, 1.001 cells
+  short of its far edges) and a normal from the cell's finite
+  differences.  Heights come from ``m.hfield_data``, which no randomiser
+  batches.  Returns one slot, a (dist (P, B), pos, n) triple."""
+  dists, poss, ns = [], [], []
+  hdata = m.hfield_data
+  for hgeom, sgeom, _ in np.asarray(tbl):
+    hgeom, sgeom = int(hgeom), int(sgeom)
+    hid = int(m.geom_dataid[hgeom])
+    nrow, ncol = int(m.hfield_nrow[hid]), int(m.hfield_ncol[hid])
+    adr = int(m.hfield_adr[hid])
+    hsize = m.hfield_size[hid]  # (4,) numpy
+
+    hpos = [gxpos[hgeom, i] for i in range(3)]  # (B,)
+    hmat = [[gxmat[hgeom, i, j] for j in range(3)] for i in range(3)]
+    center = [gxpos[sgeom, i] for i in range(3)]
+    r = geom_size[sgeom, 0]  # (B or 1,)
+
+    local = _matTvec(hmat, _sub(center, hpos))
+    fx = (local[0] / float(hsize[0]) * 0.5 + 0.5) * (ncol - 1)
+    fy = (local[1] / float(hsize[1]) * 0.5 + 0.5) * (nrow - 1)
+    fx = torch.clamp(fx, 0.0, ncol - 1.001)
+    fy = torch.clamp(fy, 0.0, nrow - 1.001)
+    x0 = torch.floor(fx).to(torch.int32)
+    y0 = torch.floor(fy).to(torch.int32)
+    wx = fx - x0
+    wy = fy - y0
+    base = (adr + y0 * ncol + x0).long()
+    h00 = hdata[base]
+    h01 = hdata[base + 1]
+    h10 = hdata[base + ncol]
+    h11 = hdata[base + ncol + 1]
+    zs = float(hsize[2])
+    h = (h00 * (1 - wx) * (1 - wy) + h01 * wx * (1 - wy)
+         + h10 * (1 - wx) * wy + h11 * wx * wy) * zs
+    dx = 2 * float(hsize[0]) / (ncol - 1)
+    dy = 2 * float(hsize[1]) / (nrow - 1)
+    gx = (h01 - h00) * zs / dx
+    gy = (h10 - h00) * zs / dy
+    n_local = [-gx, -gy, torch.ones_like(gx)]
+    inv = 1.0 / torch.sqrt(_dot(n_local, n_local))
+    n = _matvec(hmat, _scale(n_local, inv))
+    dist = (local[2] - h) - r
+    pos = _sub(center, _scale(n, r + 0.5 * dist))
+    dists.append(dist)
+    poss.append(pos)
+    ns.append(n)
+  cat = lambda parts: torch.stack(parts, dim=0)  # (P, B)
+  return [(cat(dists), [cat([p[i] for p in poss]) for i in range(3)],
+           [cat([v[i] for v in ns]) for i in range(3)])]
+
+
+def _group_slots(m: Model, name: str, tbl, geom_size, gxpos, gxmat):
+  """The slots of pair group ``name``: gather both geoms' poses and sizes
+  by the pair table and run the group's function."""
+  dev = gxpos.device
+  g1 = statics.table(m, f'pairs.{name}.g1', lambda: tbl[:, 0], dev,
+                     torch.long)
+  g2 = statics.table(m, f'pairs.{name}.g2', lambda: tbl[:, 1], dev,
+                     torch.long)
+  p1 = [gxpos[g1, i] for i in range(3)]
+  m1 = [[gxmat[g1, i, j] for j in range(3)] for i in range(3)]
+  s1 = [geom_size[g1, i] for i in range(3)]
+  p2 = [gxpos[g2, i] for i in range(3)]
+  m2 = [[gxmat[g2, i, j] for j in range(3)] for i in range(3)]
+  s2 = [geom_size[g2, i] for i in range(3)]
+  return _GROUP_FN[name](p1, m1, s1, p2, m2, s2)
 
 
 def _collide_lanes(m: Model, geom_size, gxpos, gxmat):
@@ -157,26 +349,13 @@ def _collide_lanes(m: Model, geom_size, gxpos, gxmat):
   gxpos (ngeom, 3, B), gxmat (ngeom, 3, 3, B).  Returns lanes tensors
   dist (ncon, B), pos (ncon, 3, B), frame (ncon, 3, 3, B)."""
   dist_parts, pos_parts, frame_parts = [], [], []
-  dev = gxpos.device
   for name, tbl in m.pairs:
     if len(tbl) == 0:
       continue
-    fn = _GROUP_FN.get(name)
-    if fn is None:
-      raise NotImplementedError(
-          f'collision pair group {name!r} is not ported yet'
-      )
-    g1 = statics.table(m, f'pairs.{name}.g1', lambda: tbl[:, 0], dev,
-                       torch.long)
-    g2 = statics.table(m, f'pairs.{name}.g2', lambda: tbl[:, 1], dev,
-                       torch.long)
-    p1 = [gxpos[g1, i] for i in range(3)]
-    m1 = [[gxmat[g1, i, j] for j in range(3)] for i in range(3)]
-    s1 = [geom_size[g1, i] for i in range(3)]
-    p2 = [gxpos[g2, i] for i in range(3)]
-    m2 = [[gxmat[g2, i, j] for j in range(3)] for i in range(3)]
-    s2 = [geom_size[g2, i] for i in range(3)]
-    slots = fn(p1, m1, s1, p2, m2, s2)
+    if name == 'hfield_sphere':
+      slots = _hfield_sphere(m, tbl, geom_size, gxpos, gxmat)
+    else:
+      slots = _group_slots(m, name, tbl, geom_size, gxpos, gxmat)
     assert len(slots) == GROUP_NCON[name]
 
     d_sl, pos_sl, fr_sl = [], [], []

@@ -3,9 +3,8 @@
 Counterpart of ``ppo_config`` and ``sac_config`` in
 ``rsr_mjx_tpu/train/configs.py``, as plain ``Config``s: the Airbot table
 and the Go2 tables (a generic table with overrides for the joystick,
-handstand / footstand and getup tasks).  A Go2 table holds for every Go2
-task of the JAX package; ``envs.load`` raises for a task the port has not
-ported yet.
+handstand / footstand and getup tasks), one for every Go2 task of the
+JAX package.
 """
 
 from __future__ import annotations

@@ -275,12 +275,15 @@ def test_go2_config_and_registry():
   assert float(m.actuator_biasprm[3, 1]) == -60.0
   assert float(m.dof_damping[7]) == cfg.Kd and float(m.dof_damping[5]) == 0.0
   assert cfg.Kp == 60.0  # the defaults are not touched
-  # the other Go2 tasks are not registered yet
-  assert 'Go2JoystickFlatTerrain' in penvs.registered_envs()
-  for name in ('Go2JoystickRoughTerrain', 'Go2Getup', 'Go2Handstand',
-               'Go2Footstand'):
-    with pytest.raises(ValueError, match='unknown env'):
-      penvs.load(name, device='cpu')
+  # every Go2 task is registered and loads on the CPU with its scene
+  sizes = {'Go2JoystickFlatTerrain': 4, 'Go2JoystickRoughTerrain': 4,
+           'Go2Getup': 156, 'Go2Handstand': 156, 'Go2Footstand': 156}
+  for name, ncon in sizes.items():
+    assert name in penvs.registered_envs()
+    mo = penvs.load(name, device='cpu').model
+    assert (mo.nq, mo.nv, mo.ncon) == (19, 18, ncon), name
+  with pytest.raises(ValueError, match='unknown env'):
+    penvs.load('Go2Backflip', device='cpu')
 
 
 def test_go2_float64_reference_path():

@@ -26,7 +26,11 @@ PPO on Go2 getup (K1, K4 at 366 rows).  One
 tunes the
 cube's friction through ``rsr.pipeline.env_params_tuning`` with gradients
 through the step (K1, K2, K3 forward; K1, K2, K4 in the recomputation and
-the backward).  Phases; any failure exits non-zero before the result line
+the backward).  And the port's command-line programs: the benchmark
+(``python -m rsr_mjx_tpu_torch.bench``) on cube-push and the Go2
+joystick, the evaluation CLIs (``train.eval_policy``, ``train.eval_go2``)
+on cube-push and getup, and PPO and SAC training in a ``torch.distributed``
+group of one.  Phases; any failure exits non-zero before the result line
 is printed:
 
   1. device   a CUDA card is required (no CPU path); print the card's name and
@@ -91,13 +95,13 @@ is printed:
               substep (B 1024) under phase 2's checks, one recorded
               minibatch step on the card against the CPU in fp32 and
               float64 (see sgd_check), and the evaluator, deterministic, on
-              128 envs for a cut episode of 10 control steps.
+              128 envs for a cut episode of 5 control steps.
   5. rsr      ``rsr.pipeline.policy_params_training(algorithm='ppo')`` on
               ``AirbotCubePush`` with ``data_rsr_demo/`` at the RSR CLI's
-              width (512 envs, batch 128 x 32 minibatches, unroll 10, 8
-              updates, policy and value 32 x 4), bandwidth 2.0 (at the
-              demo's 0.1 the penalty is identically zero) and
-              rsr_loss_scale 1.0, for one training step (40960 env-steps):
+              width (512 envs, batch 128, unroll 10, 8 updates, policy
+              and value 32 x 4) with 8 of its 32 minibatches, bandwidth
+              2.0 (at the demo's 0.1 the penalty is identically zero) and
+              rsr_loss_scale 1.0, for one training step (10240 env-steps):
               the gate weight, each step's loss metrics with
               sim2real_loss and rsr_distribution_distance, the rates as in
               phase 4 and its checks (launches 2·S + 1, S + 1, S + 1, 0),
@@ -118,7 +122,7 @@ is printed:
               recomputation on K1, K2, K4; the backward on K1, the IFT
               solve included), in two runs: the demo's command (30
               transitions from 15, k = 1, init 0.4, bounds x0.2 and x10,
-              lr 0.005) for 4 Adam steps and the slip run of
+              lr 0.005) for 2 Adam steps and the slip run of
               tuned_params_slip_k8pd.json (k = 8, per_dim_error, 23
               windows) for 1.  Per Adam step after the first: seconds from
               CUDA events, split into the forward and the backward; the
@@ -139,7 +143,7 @@ is printed:
               bounds; K2 and K3 on the last Adam step's forward (B 30)
               under phase 2's criteria, with their times; K2's picks equal
               the plain version's and its backward the plain gather's.
-  8. sac      three SAC runs at full width, each SAC_TRAIN_STEPS (8)
+  8. sac      three SAC runs at full width, each SAC_TRAIN_STEPS (4)
               training steps after its replay prefill, in one epoch with
               no evaluation inside: ``sac.train`` with
               ``configs.sac_config('AirbotCubePushTrain')`` (1024 envs,
@@ -175,11 +179,12 @@ is printed:
               under phase 2's checks at every E, with the shared memory of
               the E chosen; 256 envs against the CPU in fp32 and float64; 10
               control steps and one under the profiler (tpush_phase).
-              (b) ``ppo.train`` on T-push at the Airbot table for one
-              training step, with phase 4's checks and evaluator.  (c) and
-              (d) ``ppo.train`` with ``randomization_fn=envs.
-              get_domain_randomizer(...)`` on cube-push (1024 envs) and on
-              the Go2 joystick (8192) for one training step each: the
+              (b) ``ppo.train`` on T-push at the Airbot table (8 of its
+              32 minibatches) for one training step, with phase 4's checks
+              and evaluator.  (c) and (d) ``ppo.train`` with
+              ``randomization_fn=envs.get_domain_randomizer(...)`` on
+              cube-push (1024 envs, 8 of 32 minibatches) and on the Go2
+              joystick (8192) for one training step each: the
               randomised fields on the card within their ranges and
               distinct across envs, every other leaf nominal, no
               randomisation in the evaluator; the terminated share; K1, K2
@@ -191,7 +196,7 @@ is printed:
               512-256-128 policy: none is trained) and
               ``Go2JoystickRoughTerrain`` (logs/go2_joystick_50M_r5, the flat
               policy on the reference terrain), each served at B = 8192 for
-              25 control steps of 5 substeps (go2_tasks_phase): the reset
+              15 control steps of 5 substeps (go2_tasks_phase): the reset
               timed (getup's: a forward and 125 settle substeps, its
               launches counted); K4 at nv 18, R0 366 on getup's recorded
               inputs at 1 x 5 and 6 x 6, at every E that fits, on B - 3
@@ -207,9 +212,22 @@ is printed:
               step of getup at its table (8192 envs; launches S + 126 of K1
               and K4, the settle included) with phase 6's checks, K4 held
               as check_k4_full holds it, and the evaluator.
- 11. result   one JSON line of the kernels (launches of all nineteen paths;
-              K1 on the Go2 tasks and K4 at R0 366 with entries of their
-              own), the card's name and power limit, and last the line
+ 11. cli      (a) ``bench.main`` on ``AirbotCubePush`` at B 2048 (K1, K2,
+              K3) and on the Go2 joystick at B 8192 (K1, K4), each a
+              warm-up rollout of 5 random-action control steps and 2 timed
+              (BENCH_CUT; full length 50 x 3), its JSON line printed with a
+              finite rate; (b) ``eval_policy.main`` on logs/cube_ppo_15M_r4
+              and ``eval_go2.main`` on getup (logs/go2_getup_5M_r5), 128
+              episodes x 25 control steps each, the summaries printed and
+              finite (cli_phase); each run's launches counted from zero,
+              only its path's kernels launched; (c) one PPO and one SAC
+              run on cube-push at 256 envs (world1_phase) with no process
+              group and in an NCCL group of one started here: the trained
+              parameters and the normalizer the same bits.  Groups of more
+              than one run only in the gloo tests on the CPU.
+ 12. result   one JSON line of the kernels (launches of every path; K1 on
+              the Go2 tasks and K4 at R0 366 with entries of their own),
+              the card's name and power limit, and last the line
               {"ok": true, "device": {...}}.
 """
 
@@ -250,18 +268,25 @@ REF_ENVS = 256  # envs of the batch run also on the CPU, fp32 and float64
 # cut from 2 to keep the script within 12 minutes once phase 8 came)
 TRAIN_STEPS = 1
 EVAL_ENVS = 128  # the evaluator's envs after training (ppo.train's default)
-# control steps of its episode, cut from 1200 (Go2: 1000) to 25, and to 10
-# once phase 9 came, to keep the script within 12 minutes
-EVAL_STEPS = 10
+# control steps of its episode, cut from 1200 (Go2: 1000) to 25, to 10 once
+# phase 9 came and to 5 once phase 11 came, to keep the script within 12
+# minutes
+EVAL_STEPS = 5
 RSR_ENV = 'AirbotCubePush'  # the RSR CLI's default env (the rsr variant)
 RSR_DATA = os.path.join(ROOT, 'data_rsr_demo')
 # at the demo's default bandwidth 0.1 every KDE on the grid is one-hot and
 # the penalty is identically zero; at 2.0 its gate is open
 RSR_BANDWIDTH = 2.0
-RSR_STEPS = 1  # RSR training steps (40960 env-steps at 512 envs)
-# the RSR CLI's PPO width (policy_params_training's defaults at 512 envs)
+RSR_STEPS = 1  # RSR training steps (10240 env-steps at 512 envs)
+# the training steps of RSR (phase 5), T-push and cube-push with domain
+# randomisation (phase 9) take this many of their tables' 32 minibatches
+# of the batch size: 2 of their 8 unrolls, cut once phase 11 came, to keep
+# the script within 12 minutes (cube-push's own step, phase 4, keeps 32)
+SHORT_MINIBATCHES = 8
+# the RSR CLI's PPO width (policy_params_training's defaults at 512 envs),
+# its minibatches cut to SHORT_MINIBATCHES
 RSR_SIZES = dict(num_envs=512, batch_size=128, unroll_length=10,
-                 num_minibatches=32, num_updates_per_batch=8)
+                 num_minibatches=SHORT_MINIBATCHES, num_updates_per_batch=8)
 GO2_TRAIN_STEPS = 1  # Go2 PPO training steps (163840 env-steps at 8192)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the full 700 W
@@ -1746,13 +1771,16 @@ def run_eval(torch, port, env0, make_policy, params, episode_length, tag,
     raise SystemExit(f'{tag} eval: a non-finite episode reward')
 
 
-def tuned_config(port, env_name, steps):
+def tuned_config(port, env_name, steps, num_minibatches=None):
   """(config, network factory keywords, env-steps per training step) of
   the tuned PPO config of ``env_name`` cut to ``steps`` training steps in
-  one epoch with no evaluation inside."""
+  one epoch with no evaluation inside (and to ``num_minibatches`` where
+  given)."""
   cfg = port.configs.ppo_config(env_name)
   nf = {k: tuple(v) if isinstance(v, list) else v
         for k, v in cfg.pop('network_factory').items()}
+  if num_minibatches is not None:
+    cfg.num_minibatches = num_minibatches
   per_step = (cfg.batch_size * cfg.unroll_length * cfg.num_minibatches
               * cfg.action_repeat)
   cfg.update(num_timesteps=steps * per_step, num_evals=0)
@@ -1760,19 +1788,20 @@ def tuned_config(port, env_name, steps):
 
 
 def train_phase(torch, port, lk, card, name=ENV, tag='train',
-                steps=TRAIN_STEPS, eval_steps=None):
+                steps=TRAIN_STEPS, eval_steps=None, num_minibatches=None):
   """PPO on cube-push (or T-push: ``name``) at the tuned width:
   ``ppo.train`` with ``configs.ppo_config`` (1024 envs, batch 256 x 32
   minibatches, unroll 10, 8 updates per batch) for ``steps`` training steps
   in one epoch, no evaluation inside (run_training).  Then K1, K2 and K3 on
   the recorded inputs of the last training substep (B 1024, E of the
   training batch) against their plain versions, as phase 2 holds them, the
-  card-vs-CPU SGD check on the first minibatch, and the evaluator.  Returns
-  the kernels' launches in training."""
+  card-vs-CPU SGD check on the first minibatch, and the evaluator.
+  ``num_minibatches`` cuts the table's.  Returns the kernels' launches in
+  training."""
   import functools
 
   import_train(port)
-  cfg, nf, per_step = tuned_config(port, name, steps)
+  cfg, nf, per_step = tuned_config(port, name, steps, num_minibatches)
   factory = functools.partial(port.networks.make_ppo_networks, **nf)
   env0 = port.envs.load(name, device=DEV)
   r = run_training(
@@ -1802,7 +1831,8 @@ def rsr_phase(torch, port, lk, card):
   """RSR policy training on cube-push: ``rsr.pipeline.
   policy_params_training(algorithm='ppo')`` on AirbotCubePush with the demo
   data (``load_rsr_datasets``), at the RSR CLI's width (512 envs, batch 128
-  x 32 minibatches, unroll 10, 8 updates, policy and value 32 x 4), at
+  x SHORT_MINIBATCHES of its 32 minibatches, unroll 10, 8 updates, policy
+  and value 32 x 4), at
   bandwidth RSR_BANDWIDTH (where the penalty's gate is open; at the demo's
   default 0.1 the term is identically zero) and rsr_loss_scale 1.0, for
   one training step with no evaluation inside.  Checks as phase 4's, with
@@ -1912,9 +1942,10 @@ def go2_train_phase(torch, port, lk, card, name=GO2_ENV, tag='go2 train',
 
 # env-parameter tuning on the demo data (logs/rsr_demo_r4/README.md): the
 # demo's command and the slip run of tuned_params_slip_k8pd.json, each cut to
-# a few Adam steps: (tag, first transition, transitions, rollout horizon k,
-# per_dim_error, Adam steps)
-TUNE_RUNS = (('demo', 15, 30, 1, False, 4),
+# a few Adam steps (the demo's from 6 to 4 once phase 10 came and to 2 once
+# phase 11 came, to keep the script within 12 minutes): (tag, first
+# transition, transitions, rollout horizon k, per_dim_error, Adam steps)
+TUNE_RUNS = (('demo', 15, 30, 1, False, 2),
              ('slip k8pd', 15, 30, 8, True, 1))
 TUNE_INIT, TUNE_LR = 0.4, 0.005
 TUNE_FD_STEP = 1e-4  # the differences of the float64 loss printed beside
@@ -2271,8 +2302,8 @@ def tuning_phase(torch, port, lk, card):
 # -- phase 8: SAC ------------------------------------------------------------
 
 # SAC training steps of each run (one epoch); cut from 16 to 8 once phase 9
-# came, to keep the script within 12 minutes
-SAC_TRAIN_STEPS = 8
+# came and to 4 once phase 11 came, to keep the script within 12 minutes
+SAC_TRAIN_STEPS = 4
 # actor steps of the replay prefill of the cube-push and Go2 SAC runs: the
 # tables' min_replay_size over num_envs (98 and 49) cut to this once phase 10
 # came, to keep the script within 12 minutes (the ring's capacity, the
@@ -2693,10 +2724,11 @@ def sac_phase(torch, port, lk, card):
 
 
 TPUSH_ENV = 'AirbotTPush'
-TPUSH_TRAIN_STEPS = 1  # T-push PPO training steps (81920 env-steps each)
+# T-push PPO training steps (20480 env-steps each: SHORT_MINIBATCHES)
+TPUSH_TRAIN_STEPS = 1
 # control steps of the evaluator's episode after it; cut from 25 to 10 once
-# phase 10 came
-TPUSH_EVAL_STEPS = 10
+# phase 10 came and to 5 once phase 11 came
+TPUSH_EVAL_STEPS = 5
 DR_TRAIN_STEPS = 1  # PPO training steps with domain randomisation
 # what each randomiser may do to each field it batches, per entry against
 # the nominal model (envs/airbot/randomize.py, envs/go2/randomize.py):
@@ -2874,7 +2906,8 @@ def dr_train_phase(torch, port, lk, card, name):
   Returns the kernels' launches in training."""
   import functools
 
-  cfg, nf, per_step = tuned_config(port, name, DR_TRAIN_STEPS)
+  cfg, nf, per_step = tuned_config(
+      port, name, DR_TRAIN_STEPS, SHORT_MINIBATCHES if name == ENV else None)
   factory = functools.partial(port.networks.make_ppo_networks, **nf)
   env0 = port.envs.load(name, device=DEV)
   wrapped, real_wrap = [], port.wrappers.wrap_for_training
@@ -2970,7 +3003,9 @@ GO2_TASKS = (
     (ROUGH_ENV, GO2_PARAMS, 1000),
 )
 FULL_SCENE = (GETUP_ENV, HANDSTAND_ENV, FOOTSTAND_ENV)
-TASK_STEPS = 25  # control steps of each task's rollout, 5 substeps each
+# control steps of each task's rollout, 5 substeps each; cut from 25 to 15
+# once phase 11 came, to keep the script within 12 minutes
+TASK_STEPS = 15
 GETUP_SETTLE = 125  # substeps of a getup reset: settle_time / sim_dt
 # per substep K1 and K4 once; the reset's forward and its settle
 GETUP_TRAIN_LAUNCHES = lambda S: {
@@ -3229,6 +3264,168 @@ def go2_tasks_phase(torch, port, lk, card):
 
 
 
+# -- phase 11: the benchmark script, the evaluation CLIs, a group of one
+# the bench's length here: a warm-up rollout of 5 control steps and 2 timed
+# (full length 50 x 3: PERF.md section 5)
+BENCH_CUT = ['--steps', '5', '--reps', '2']
+EVAL_CLI_STEPS = 25  # control steps of each evaluation (full: 1200, 500)
+GETUP_PARAMS = os.path.join(ROOT, 'logs', 'go2_getup_5M_r5',
+                            'final_params.pkl')
+CUBE_PATH = ('spd_solve_lanes', 'contact_select_lanes', 'newton_lanes_pyr_t')
+GO2_PATH = ('spd_solve_lanes', '_newton_lanes_core')
+# the training runs of the group of one: PPO's 2 unrolls of 2 control steps
+# and one minibatch update, SAC's prefill of one actor step and one
+# training step, both at 256 envs with the normalizer on
+WORLD1_ENVS = 256
+WORLD1_PPO = dict(num_timesteps=WORLD1_ENVS * 2 * 2, num_envs=WORLD1_ENVS,
+                  batch_size=WORLD1_ENVS, num_minibatches=2, unroll_length=2,
+                  num_updates_per_batch=1, num_evals=0)
+WORLD1_SAC = dict(num_timesteps=2 * WORLD1_ENVS, num_envs=WORLD1_ENVS,
+                  batch_size=WORLD1_ENVS, min_replay_size=WORLD1_ENVS,
+                  max_replay_size=16 * WORLD1_ENVS, grad_updates_per_step=1,
+                  num_evals=0)
+
+
+def import_cli(port):
+  """Add the benchmark, the evaluation CLIs and the trainers' process-group
+  helpers to ``port`` (phase 11)."""
+  mod = _port_module
+  port.bench, port.distributed = mod('bench'), mod('train.distributed')
+  port.eval_policy, port.eval_go2 = (mod('train.eval_policy'),
+                                     mod('train.eval_go2'))
+  port.sac, port.sac_networks = mod('train.sac'), mod('train.sac_networks')
+
+
+def path_launches(lk, tag, kernels):
+  """The launch counts since zero_launches; fail unless exactly the path's
+  ``kernels`` were launched."""
+  launches = dict(lk.LAUNCHES)
+  if any((n > 0) != (name in kernels) for name, n in launches.items()):
+    raise SystemExit(f'{tag}: launches {launches}, expected {kernels} only')
+  return launches
+
+
+def cli_phase(torch, lk, port, card):
+  """Phase 11 (a), (b): ``bench.main`` on cube-push (B 2048, K1 K2 K3) and
+  the Go2 joystick (B 8192, K1 K4) at BENCH_CUT, each line's rate finite;
+  ``eval_policy.main`` on the cube-push checkpoint and ``eval_go2.main``
+  on getup, 128 episodes x EVAL_CLI_STEPS control steps each, their
+  summaries finite.  Each run's launches counted from zero.  Returns
+  (the sum of the launches of the first three, getup's: K1 and K4 at the
+  full scene's R0 366)."""
+  total = {}
+
+  def add(tag, kernels, t):
+    launches = path_launches(lk, tag, kernels)
+    for k, v in launches.items():
+      total[k] = total.get(k, 0) + v
+    log(f'{tag}: {time.perf_counter() - t:.1f} s; launches {launches}; '
+        f'card {card}')
+    return launches
+
+  for argv, kernels in (
+      (['--env', 'AirbotCubePush', '--num_envs', str(ENVS)], CUBE_PATH),
+      (['--env', GO2_ENV, '--num_envs', str(GO2_ENVS)], GO2_PATH)):
+    zero_launches(lk)
+    t = time.perf_counter()
+    line = port.bench.main(argv + BENCH_CUT + ['--device', DEV])
+    if not (math.isfinite(line['value']) and line['value'] > 0):
+      raise SystemExit(f'bench: no finite rate in {line}')
+    add(f'bench {line["metric"]}', kernels, t)
+
+  zero_launches(lk)
+  t = time.perf_counter()
+  s = port.eval_policy.main([PARAMS, '--episodes', str(EVAL_ENVS),
+                             '--episode_length', str(EVAL_CLI_STEPS),
+                             '--device', DEV])
+  add(f'eval_policy {ENV} {EVAL_ENVS} x {EVAL_CLI_STEPS}', CUBE_PATH, t)
+  check_finite(torch, [(k, torch.as_tensor(s[k]), (EVAL_ENVS,))
+                       for k in ('ep_rew', 'min_dist')])
+  zero_launches(lk)
+  t = time.perf_counter()
+  s = port.eval_go2.main([GETUP_PARAMS, '--env', GETUP_ENV, '--episodes',
+                          str(EVAL_ENVS), '--episode_length',
+                          str(EVAL_CLI_STEPS), '--device', DEV])
+  main = dict(total)
+  getup = add(f'eval_go2 {GETUP_ENV} {EVAL_ENVS} x {EVAL_CLI_STEPS}',
+              GO2_PATH, t)
+  check_finite(torch, [('ep_rew', torch.as_tensor(s['ep_rew']),
+                        (EVAL_ENVS,)),
+                       ('uprightness', torch.as_tensor(s['m_lin']), ())])
+  if not s['finite']:
+    raise SystemExit('eval_go2: rewards not finite')
+  return main, getup
+
+
+def world1_train(torch, port, algo, group):
+  """One PPO or SAC run of WORLD1_* on cube-push at SEED, in an NCCL group
+  of one (``group``) or with none; returns every tensor of the trained
+  networks and normalizer, on the CPU."""
+  import functools
+  import socket
+
+  cfg = port.configs.ppo_config(ENV) if algo == 'ppo' else (
+      port.configs.sac_config(ENV))
+  nf = {k: tuple(v) if isinstance(v, list) else v
+        for k, v in cfg.pop('network_factory').items()}
+  cfg.pop('policy_obs_key', None)
+  cfg.update(WORLD1_PPO if algo == 'ppo' else WORLD1_SAC)
+  make = port.networks.make_ppo_networks if algo == 'ppo' else (
+      port.sac_networks.make_sac_networks)
+  train = port.ppo.train if algo == 'ppo' else port.sac.train
+  if group:
+    with socket.socket() as sock:
+      sock.bind(('localhost', 0))
+      addr = f'tcp://localhost:{sock.getsockname()[1]}'
+    device = port.distributed.init(DEV, init_method=addr, rank=0,
+                                   world_size=1)
+    expect = 'cuda:0' if DEV == 'cuda' else DEV
+    if port.distributed.world() != (0, 1) or device != expect:
+      raise SystemExit(f'group of one: {port.distributed.world()}, {device}')
+  try:
+    _, (norm, net), metrics = train(
+        environment=port.envs.load(ENV, device=DEV),
+        network_factory=functools.partial(make, **nf), seed=SEED,
+        device=DEV, **cfg)
+  finally:
+    if group:
+      port.distributed.finish()
+  out = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+  out.update({f'normalizer.{k}': getattr(norm, k).cpu()
+              for k in ('count', 'mean', 'summed_variance', 'std')})
+  return out, metrics
+
+
+def world1_phase(torch, lk, port, card):
+  """Phase 11 (c): one PPO and one SAC run (WORLD1_*) with no process
+  group, then the same in an NCCL group of one started here (TCPStore on
+  localhost), which sends every gradient, the normalizer's sums and the
+  metrics through all-reduces and each env's draws through a
+  ``RowStream``: the parameters and the normalizer must be the same bits.
+  Groups of more than one run only in the gloo tests on the CPU
+  (tests/test_torch_distributed.py).  Returns the group runs' launches."""
+  total = {}
+  for algo in ('ppo', 'sac'):
+    t = time.perf_counter()
+    plain, _ = world1_train(torch, port, algo, group=False)
+    zero_launches(lk)
+    grouped, metrics = world1_train(torch, port, algo, group=True)
+    launches = path_launches(lk, f'group of one, {algo}', CUBE_PATH)
+    for k, v in launches.items():
+      total[k] = total.get(k, 0) + v
+    differ = [k for k in plain if not torch.equal(plain[k], grouped[k])]
+    log(f'group of one, {algo} on {ENV} at {WORLD1_ENVS} envs: '
+        f'{len(plain)} tensors, {len(differ)} differ from no group '
+        f'{differ[:4]}; loss metrics '
+        + ', '.join(f'{k.split("/")[-1]} {v:.6g}' for k, v in metrics.items()
+                    if k.endswith('loss'))
+        + f'; {time.perf_counter() - t:.1f} s; launches {launches}; '
+        f'card {card}')
+    if differ:
+      raise SystemExit(f'group of one, {algo}: not the bits of no group')
+  return total
+
+
 def wrapper_times(torch, port, card) -> None:
   """The mode ``--wrapper-times [DIR]``: K1 at both paths' shapes and K2,
   through ``spd_solve_lanes`` and ``contact_select_lanes`` of the port
@@ -3455,7 +3652,8 @@ def main() -> int:
   dr_launches = [tpush_phase(torch, port, lk, card)]
   dr_launches.append(train_phase(torch, port, lk, card, name=TPUSH_ENV,
                                  tag='tpush train', steps=TPUSH_TRAIN_STEPS,
-                                 eval_steps=TPUSH_EVAL_STEPS))
+                                 eval_steps=TPUSH_EVAL_STEPS,
+                                 num_minibatches=SHORT_MINIBATCHES))
   dr_launches.append(dr_train_phase(torch, port, lk, card, ENV))
   dr_launches.append(dr_train_phase(torch, port, lk, card, GO2_ENV))
   phase_done(9)
@@ -3466,7 +3664,13 @@ def main() -> int:
       torch, port, lk, card)
   phase_done(10)
 
-  # -- 11. result
+  # -- 11. the benchmark script, the evaluation CLIs, a group of one
+  import_cli(port)
+  cli_launches, getup_eval = cli_phase(torch, lk, port, card)
+  w1_launches = world1_phase(torch, lk, port, card)
+  phase_done(11)
+
+  # -- 12. result
   log('kernels: ' + ', '.join(f'{v[0]} {k}' for k, v in KERNELS.items()))
   # phase 10's K4 launches at the full scene's R0 366 have an entry of their
   # own; its rough-terrain launches are at the Go2 rows' R0 58; its K1
@@ -3475,13 +3679,15 @@ def main() -> int:
               - full_launches['_newton_lanes_core']}
   entries = [(name, rows[name], sum(phase.get(name, 0) for phase in (
       launches, g_launches, t_launches, r_launches, g_t_launches,
-      tune_launches, sac_launches, *dr_launches, rough_k4)))
+      tune_launches, sac_launches, *dr_launches, rough_k4, cli_launches,
+      w1_launches)))
              for name in KERNELS]
   entries += [
       ('spd_solve_lanes [Go2 tasks, n 18]', k1_tasks,
-       task_launches['spd_solve_lanes']),
+       task_launches['spd_solve_lanes'] + getup_eval['spd_solve_lanes']),
       ('_newton_lanes_core [Go2 full collision, nv 18, R0 366]', k4_full,
-       full_launches['_newton_lanes_core']),
+       full_launches['_newton_lanes_core']
+       + getup_eval['_newton_lanes_core']),
   ]
   out = []
   for name, r, count in entries:

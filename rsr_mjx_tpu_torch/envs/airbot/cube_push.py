@@ -172,7 +172,7 @@ class AirbotCubePush(core.Env):
     dev = m.device
 
     def uniform(shape, lo, hi):
-      u = torch.rand(shape, generator=generator, device=generator.device)
+      u = core.rand(generator, shape)
       return lo + (hi - lo) * u.to(dev)
 
     qpos = m.qpos0 + uniform((B, m.nq), -n, n)

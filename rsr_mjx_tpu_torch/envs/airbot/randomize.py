@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from rsr_mjx_tpu_torch.envs import core
 from rsr_mjx_tpu_torch.physics.io import name2id
 from rsr_mjx_tpu_torch.physics.types import Model
 
@@ -38,7 +39,7 @@ def domain_randomize(model: Model, generator: torch.Generator,
   B = batch_size
 
   def uniform(lo_hi):
-    u = torch.rand((B,), generator=generator, device=generator.device)
+    u = core.rand(generator, (B,))
     u = u.to(model.device, model.qpos0.dtype)
     return lo_hi[0] + (lo_hi[1] - lo_hi[0]) * u
 

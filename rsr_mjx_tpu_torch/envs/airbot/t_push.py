@@ -128,7 +128,7 @@ class AirbotTPush(core.Env):
     dev = m.device
 
     def uniform(shape):
-      u = torch.rand(shape, generator=generator, device=generator.device)
+      u = core.rand(generator, shape)
       return -n + 2 * n * u.to(dev, m.qpos0.dtype)
 
     qpos = m.qpos0 + uniform((B, m.nq))

@@ -5,7 +5,9 @@ Counterpart of ``rsr_mjx_tpu/envs/core.py``.  An env here is batched from
 the start: ``reset(generator, batch_size)`` makes ``batch_size`` envs and
 every tensor of ``State`` carries that leading axis (the JAX package vmaps
 a per-env env instead).  Reset noise comes from an explicit
-``torch.Generator``.
+``torch.Generator``, or from a ``RowStream``: one process's rows of the
+draws made for a batch spread over several processes, so that each env's
+draws depend on its index in the whole batch only (``rand``, ``randn``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,50 @@ import torch
 
 from rsr_mjx_tpu_torch import physics
 from rsr_mjx_tpu_torch.physics.types import Data, Model
+
+
+class RowStream:
+  """Rows ``[start, start + rows)`` of every draw made from ``generator``
+  for a batch of ``total`` envs.  Each process of a batch spread over
+  several holds one, seeded alike: env i then draws what it would draw in
+  one process of ``total`` envs (the JAX trainer's per-env keys).  The
+  draws' leading axis is the env axis.  A plain class, so ``tree_map``
+  passes it through a state's ``info`` as it does a generator."""
+
+  def __init__(self, generator: torch.Generator, start: int, rows: int,
+               total: int):
+    if not 0 <= start and start + rows <= total:
+      raise ValueError(f'rows [{start}, {start + rows}) outside {total}')
+    self.generator, self.start, self.rows, self.total = (
+        generator, start, rows, total)
+
+  @property
+  def device(self) -> torch.device:
+    return self.generator.device
+
+  def draw(self, fn, shape) -> torch.Tensor:
+    shape = tuple(shape)
+    if not shape or shape[0] != self.rows:
+      raise ValueError(f'a draw of shape {shape} has no leading axis of '
+                       f'{self.rows} envs')
+    full = fn((self.total,) + shape[1:], generator=self.generator,
+              device=self.device)
+    return full[self.start:self.start + self.rows]
+
+
+def rand(generator, shape) -> torch.Tensor:
+  """U[0, 1) of ``shape`` on the generator's device, from a
+  ``torch.Generator`` or a ``RowStream``."""
+  if isinstance(generator, RowStream):
+    return generator.draw(torch.rand, shape)
+  return torch.rand(shape, generator=generator, device=generator.device)
+
+
+def randn(generator, shape) -> torch.Tensor:
+  """N(0, 1) of ``shape``, as ``rand``."""
+  if isinstance(generator, RowStream):
+    return generator.draw(torch.randn, shape)
+  return torch.randn(shape, generator=generator, device=generator.device)
 
 
 @dataclasses.dataclass

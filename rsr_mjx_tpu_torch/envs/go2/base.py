@@ -117,7 +117,7 @@ class Go2Env(core.Env):
   def _rand(self, generator: torch.Generator, shape) -> torch.Tensor:
     """U[0, 1) of ``shape``, drawn on the generator's device, on the
     model's device and in the physics dtype."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = core.rand(generator, shape)
     return u.to(self._model.device, self._model.qpos0.dtype)
 
   def _uniform(self, generator, shape, lo, hi) -> torch.Tensor:

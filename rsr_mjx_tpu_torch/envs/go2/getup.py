@@ -106,7 +106,7 @@ class Getup(go2_base.Go2Env):
     qpos_drop = torch.zeros((B, m.nq), dtype=self._init_q.dtype,
                             device=m.device)
     qpos_drop[:, 2] = 0.5
-    quat = torch.randn((B, 4), generator=generator, device=generator.device)
+    quat = core.randn(generator, (B, 4))
     quat = quat.to(m.device, qpos_drop.dtype)
     qpos_drop[:, 3:7] = quat / (torch.linalg.vector_norm(
         quat, dim=-1, keepdim=True) + 1e-6)

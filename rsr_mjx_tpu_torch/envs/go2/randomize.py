@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from rsr_mjx_tpu_torch.envs import core
 from rsr_mjx_tpu_torch.envs.go2 import base as go2_base
 from rsr_mjx_tpu_torch.physics.io import name2id
 from rsr_mjx_tpu_torch.physics.types import Model
@@ -49,8 +50,7 @@ def domain_randomize(model: Model, generator: torch.Generator,
   B = batch_size
   d = {}
   for name, (shape, lo, hi) in draw_table(model).items():
-    u = torch.rand((B,) + shape, generator=generator,
-                   device=generator.device)
+    u = core.rand(generator, (B,) + shape)
     d[name] = lo + (hi - lo) * u.to(model.device, model.qpos0.dtype)
   floor = name2id(model, 'geom', 'floor')
   torso = name2id(model, 'body', go2_base.ROOT_BODY)

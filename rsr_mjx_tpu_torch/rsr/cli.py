@@ -8,12 +8,14 @@ evaluation, saves checkpoints under ``<logdir>/checkpoints/`` (PPO: a
 directory per step; SAC: ``run_sac_<step>.pkl``), and writes
 ``final_params.pkl`` at the end.  The flags and defaults are the JAX
 script's (``--algorithm sac`` the default), plus ``--device`` and the
-sizes that a short run cuts (by default ``policy_params_training``'s).  An
-env with dict observations feeds the policy its ``state`` entry through
+sizes that a short run cuts (by default ``policy_params_training``'s), and
+``--multihost`` (one process per device under ``torchrun``, as in
+``train.cli``; process 0 alone writes).  An env with dict observations feeds the policy its ``state`` entry through
 ``SelectObservationWrapper``, for either algorithm, as the JAX script does.
 
     python -m rsr_mjx_tpu_torch.rsr.cli --data_dir data_rsr_demo \\
         [--algorithm sac] [--device cuda] [--logdir DIR] [--num_timesteps N]
+    torchrun --nproc_per_node N -m rsr_mjx_tpu_torch.rsr.cli --multihost ...
 """
 
 from __future__ import annotations
@@ -56,6 +58,10 @@ def parse_args(argv=None) -> argparse.Namespace:
   p.add_argument('--device', default='cuda',
                  help="device of the envs and networks ('cpu' for a run "
                       "with the kernels' plain versions)")
+  p.add_argument('--multihost', action='store_true',
+                 help='one process per device under torchrun: start the '
+                      'process group from its environment (NCCL on cuda, '
+                      'gloo on cpu) on cuda:LOCAL_RANK; process 0 writes')
   for name, kind in _SIZE_FLAGS:
     p.add_argument(f'--{name}', type=kind, default=None,
                    help="override policy_params_training's default")
@@ -69,10 +75,13 @@ def main(argv=None):
   from rsr_mjx_tpu_torch import envs
   from rsr_mjx_tpu_torch.envs import wrappers
   from rsr_mjx_tpu_torch.rsr import datasets, pipeline
-  from rsr_mjx_tpu_torch.train import checkpoint
+  from rsr_mjx_tpu_torch.train import checkpoint, distributed
   from rsr_mjx_tpu_torch.train import networks as ppo_networks
   from rsr_mjx_tpu_torch.train import sac, sac_networks
 
+  if args.multihost:
+    args.device = distributed.init(args.device)
+  main_process = distributed.world()[0] == 0
   arrays = datasets.load_rsr_datasets(args.data_dir, args.max_transitions,
                                       device=args.device)
   print(f'RSR dataset: {arrays[0].shape[0]} transitions, obs '
@@ -86,7 +95,8 @@ def main(argv=None):
     eval_env = wrappers.SelectObservationWrapper(
         envs.load(args.env, device=args.device), 'state')
   ckpt_dir = os.path.join(args.logdir, 'checkpoints')
-  os.makedirs(ckpt_dir, exist_ok=True)
+  if main_process:
+    os.makedirs(ckpt_dir, exist_ok=True)
   progress_rows = []
   progress_path = os.path.join(args.logdir, 'progress.json')
 
@@ -142,9 +152,12 @@ def main(argv=None):
       device=args.device,
       **sizes,
   )
-  save = checkpoint.save_params if ppo_run else sac.save_params
-  save(os.path.join(args.logdir, 'final_params.pkl'), params)
-  print(f'done; params in {args.logdir}', flush=True)
+  if args.multihost:
+    distributed.finish()
+  if main_process:
+    save = checkpoint.save_params if ppo_run else sac.save_params
+    save(os.path.join(args.logdir, 'final_params.pkl'), params)
+    print(f'done; params in {args.logdir}', flush=True)
   return make_inference_fn, params
 
 

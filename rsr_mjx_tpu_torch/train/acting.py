@@ -4,10 +4,11 @@ Counterpart of ``rsr_mjx_tpu/train/acting.py``.  A rollout is a Python loop
 over control steps under ``torch.no_grad()``: the physics kernels have no
 autograd, so no tensor that requires grad may reach the env.  A policy is
 ``policy(obs, generator) → (action, extras)``; the stochastic policy draws
-its noise for all envs from the one ``torch.Generator`` it is given.  (The
-JAX trainer splits one key per env so that a rollout on N devices equals
-the rollout on one; per-env streams come with multi-GPU training, ROADMAP
-item 7.)
+its noise for all envs from the one ``torch.Generator`` it is given, or
+from a ``core.RowStream`` (a trainer under a process group): then each
+env's noise depends on its index in the whole batch only, so that a
+rollout on N devices equals the rollout on one, as the JAX trainer's
+per-env keys make it.
 """
 
 from __future__ import annotations

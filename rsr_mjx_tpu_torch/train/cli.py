@@ -10,12 +10,17 @@ the end.  SAC on an env with dict observations feeds the policy the
 config's ``policy_obs_key`` entry (``SelectObservationWrapper``).
 ``--domain_randomization`` trains on the env's registered randomiser (one
 randomised model per training env; the evaluator keeps the nominal model)
-and refuses an env that has none.
-Experiment-logging sinks and rendering are not ported (ROADMAP item 8).
+and refuses an env that has none.  ``--multihost`` trains on one process
+per device (``scripts/train.py``'s flag; ``train.distributed``), started
+by ``torchrun``; process 0 alone writes.
+Rendering and experiment-logging sinks are not ported (ROADMAP items 4
+and 6).
 
     python -m rsr_mjx_tpu_torch.train.cli --env AirbotCubePushTrain \\
         [--algorithm ppo|sac] [--domain_randomization] [--device cuda] \\
         [--logdir DIR] ...
+    torchrun --nproc_per_node N -m rsr_mjx_tpu_torch.train.cli \\
+        --multihost ...
 """
 
 from __future__ import annotations
@@ -51,6 +56,10 @@ def parse_args(argv=None) -> argparse.Namespace:
   p.add_argument('--device', default='cuda',
                  help="device of the envs and networks ('cpu' for a run "
                       'with the kernels\' plain versions)')
+  p.add_argument('--multihost', action='store_true',
+                 help='one process per device under torchrun: start the '
+                      'process group from its environment (NCCL on cuda, '
+                      'gloo on cpu) on cuda:LOCAL_RANK; process 0 writes')
   for name in _INT_FLAGS:
     p.add_argument(f'--{name}', type=int, default=None,
                    help='override the tuned value')
@@ -66,7 +75,7 @@ def main(argv=None):
 
   from rsr_mjx_tpu_torch import envs
   from rsr_mjx_tpu_torch.envs import wrappers
-  from rsr_mjx_tpu_torch.train import checkpoint, configs
+  from rsr_mjx_tpu_torch.train import checkpoint, configs, distributed
   from rsr_mjx_tpu_torch.train import networks as ppo_networks
   from rsr_mjx_tpu_torch.train import ppo, sac, sac_networks
 
@@ -79,6 +88,9 @@ def main(argv=None):
                        'ones: ' + ', '.join(
                            n for n in envs.registered_envs()
                            if envs.get_domain_randomizer(n)))
+  if args.multihost:
+    args.device = distributed.init(args.device)
+  main_process = distributed.world()[0] == 0
   env = envs.load(args.env, device=args.device)
   eval_env = envs.load(args.env, device=args.device)
   cfg = (configs.ppo_config if algo == 'ppo' else configs.sac_config)(
@@ -90,7 +102,8 @@ def main(argv=None):
   logdir = args.logdir or os.path.join(
       'logs', f'{args.env}-{algo}-{time.strftime("%Y%m%d-%H%M%S")}')
   ckpt_dir = os.path.join(logdir, 'checkpoints')
-  os.makedirs(ckpt_dir, exist_ok=True)
+  if main_process:
+    os.makedirs(ckpt_dir, exist_ok=True)
   history = []
 
   def progress_fn(step, metrics):
@@ -133,10 +146,13 @@ def main(argv=None):
         randomization_fn=randomization_fn, device=args.device, **cfg)
     save_params = sac.save_params
 
-  final_path = os.path.join(logdir, 'final_params.pkl')
-  save_params(final_path, params)
-  print(f'training done; final params at {final_path}', flush=True)
-  print(f'final metrics: {metrics}', flush=True)
+  if args.multihost:
+    distributed.finish()
+  if main_process:
+    final_path = os.path.join(logdir, 'final_params.pkl')
+    save_params(final_path, params)
+    print(f'training done; final params at {final_path}', flush=True)
+    print(f'final metrics: {metrics}', flush=True)
   return make_policy, params, metrics
 
 

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from rsr_mjx_tpu_torch.envs import core
 from rsr_mjx_tpu_torch.train import running_statistics
 from rsr_mjx_tpu_torch.train.running_statistics import RunningStatisticsState
 
@@ -77,8 +78,8 @@ def lecun_uniform_(mlp: MLP, generator: torch.Generator) -> MLP:
 
 def standard_normal(shape, generator: torch.Generator) -> torch.Tensor:
   """A float32 standard-normal draw of ``shape`` on the generator's
-  device."""
-  return torch.randn(shape, generator=generator, device=generator.device)
+  device (a ``core.RowStream``'s rows of a draw for the whole batch)."""
+  return core.randn(generator, shape)
 
 
 @dataclasses.dataclass(frozen=True)

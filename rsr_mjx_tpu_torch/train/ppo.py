@@ -1,4 +1,4 @@
-"""PPO trainer on one device.
+"""PPO trainer, on one device or one process per device.
 
 Counterpart of ``rsr_mjx_tpu/train/ppo.py`` with the same argument surface
 and loop arithmetic: rollouts of the stochastic policy through the wrapped
@@ -19,8 +19,17 @@ puts the RSR penalty, times ``rsr_loss_scale``, into every minibatch's
 loss.  ``randomization_fn`` (``envs.get_domain_randomizer``) gives the
 training envs one randomised model each, drawn once from the env stream
 before the reset (JAX: ``rando_key, key_env = split(key_env)``); the
-evaluator's envs keep the nominal model, as in JAX.  Multi-GPU training
-(ROADMAP item 7) is not ported yet and raises.
+evaluator's envs keep the nominal model, as in JAX.
+
+Under a ``torch.distributed`` process group (``distributed``) each of the
+``world`` processes steps ``num_envs // world`` envs, their resets and
+action noise rows of the whole batch's draws (the same whatever the
+number of processes), and runs the SGD on its own rollouts: the gradient
+is averaged over the processes before the clip and the Adam step, the
+normalizer's sums are summed, the loss metrics averaged; the permutation
+and entropy streams are the process's own.  The env steps count all
+processes.  Process 0 alone evaluates and calls ``progress_fn`` and
+``policy_params_fn``.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import dataclasses
 import functools
 import math
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -38,6 +47,7 @@ from rsr_mjx_tpu_torch.envs.core import Env
 from rsr_mjx_tpu_torch.envs.wrappers import tree_map
 from rsr_mjx_tpu_torch.train import acting
 from rsr_mjx_tpu_torch.train import checkpoint as _checkpoint
+from rsr_mjx_tpu_torch.train import distributed
 from rsr_mjx_tpu_torch.train import losses as ppo_losses
 from rsr_mjx_tpu_torch.train import networks as ppo_networks
 from rsr_mjx_tpu_torch.train import running_statistics
@@ -73,13 +83,15 @@ def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
 def minibatch_step(networks, optimizer, normalizer_params, data,
                    entropy_noise, loss_kwargs, max_grad_norm):
   """One SGD step on a [B, T] minibatch: the PPO loss and its gradient,
-  the clip, one Adam step.  Returns the loss metrics; the clipped
-  gradients stay in each parameter's ``.grad``."""
+  its mean over the processes (``distributed``), the clip, one Adam step.
+  Returns the loss metrics; the clipped gradients stay in each
+  parameter's ``.grad``."""
   optimizer.zero_grad(set_to_none=True)
   with torch.enable_grad():
     loss, metrics = ppo_losses.compute_ppo_loss(
         networks, normalizer_params, data, entropy_noise, **loss_kwargs)
     loss.backward()
+  distributed.mean_grads_([p.grad for p in networks.parameters()])
   if max_grad_norm is not None:
     with torch.no_grad():
       clip_by_global_norm_([p.grad for p in networks.parameters()],
@@ -104,13 +116,25 @@ def randomization_bound(randomization_fn: Optional[Callable],
                            batch_size=num_envs)
 
 
-def _generators(seed: int, devices):
+def _generators(seed: int, devices, own: Sequence[int] = ()):
   """One generator on each of ``devices``, their seeds drawn from
-  ``seed``."""
+  ``seed``; those at the indices ``own`` are the process's own: their
+  seeds are offset by its rank (JAX: ``fold_in(local_key, process_id)``)."""
   base = torch.Generator().manual_seed(seed)
   seeds = torch.randint(0, 2**62, (len(devices),), generator=base).tolist()
-  return [torch.Generator(device=d).manual_seed(s)
-          for d, s in zip(devices, seeds)]
+  rank = distributed.world()[0]
+  return [torch.Generator(device=d).manual_seed(s + (rank if i in own else 0))
+          for i, (d, s) in enumerate(zip(devices, seeds))]
+
+
+def local_envs(num_envs: int) -> int:
+  """This process's share of ``num_envs`` (all of them without a process
+  group); ``num_envs`` must divide evenly."""
+  world = distributed.world()[1]
+  if num_envs % world:
+    raise ValueError(f'num_envs ({num_envs}) is no multiple of the '
+                     f'{world} processes')
+  return num_envs // world
 
 
 def _sync(device) -> None:
@@ -150,19 +174,20 @@ def train(
     past_data: Any = None,
     rsr_loss_scale: float = 1.0,
     max_grad_norm: Optional[float] = None,
-    devices: Optional[list] = None,
     device='cuda',
 ):
   """Train a PPO policy.  Returns (make_policy, (normalizer, networks),
   metrics), as the JAX ``train``; ``environment`` must live on
-  ``device``."""
+  ``device``, this process's device under a process group."""
   if batch_size * num_minibatches % num_envs:
     raise ValueError(f'batch_size * num_minibatches ({batch_size} * '
                      f'{num_minibatches}) is no multiple of num_envs '
                      f'({num_envs})')
-  if devices is not None and len(devices) > 1:
-    raise NotImplementedError('training on more than one device is not '
-                              'ported yet: ROADMAP item 7')
+  rank, world = distributed.world()
+  envs_local = local_envs(num_envs)
+  if batch_size % world:
+    raise ValueError(f'batch_size ({batch_size}) is no multiple of the '
+                     f'{world} processes')
   # loop arithmetic (RSR/train.py:150-168)
   env_step_per_training_step = (
       batch_size * unroll_length * num_minibatches * action_repeat)
@@ -172,13 +197,15 @@ def train(
   unrolls_per_step = batch_size * num_minibatches // num_envs
 
   gen_init, gen_env, gen_act, gen_sgd, gen_eval = _generators(
-      seed, ['cpu'] + [device] * 4)
+      seed, ['cpu'] + [device] * 4, own=(3,))
+  gen_env = distributed.rows(gen_env, envs_local)
+  gen_act = distributed.rows(gen_act, envs_local)
 
   env = wrappers.wrap_for_training(
       environment, episode_length=episode_length, action_repeat=action_repeat,
-      num_envs=num_envs,
+      num_envs=envs_local,
       randomization_fn=randomization_bound(randomization_fn, gen_env,
-                                           num_envs))
+                                           envs_local))
   obs_size = environment.observation_size
   action_size = environment.action_size
   network = network_factory(obs_size, action_size).init(gen_init).to(device)
@@ -216,7 +243,8 @@ def train(
                     *unrolls)
     normalizer = ts.normalizer_params
     if normalize_observations:
-      normalizer = running_statistics.update(normalizer, data.observation)
+      normalizer = running_statistics.update(
+          normalizer, data.observation, distributed.all_sum_, world)
     n = data.reward.shape[0]
     metrics = []
     for _ in range(num_updates_per_batch):
@@ -232,7 +260,7 @@ def train(
                                       minibatch, noise, loss_kwargs,
                                       max_grad_norm))
     ts = TrainingState(ts.optimizer, ts.params, normalizer,
-                       ts.env_steps + env_step_per_training_step)
+                       ts.env_steps + env_step_per_training_step // world)
     return ts, env_state, metrics
 
   env_state = env.reset(gen_env)
@@ -250,7 +278,7 @@ def train(
   metrics = {}
   training_walltime = 0.0
   current_step = 0
-  if num_evals > 1:
+  if rank == 0 and num_evals > 1:
     metrics = evaluator.run_evaluation(
         (ts.normalizer_params, ts.params), training_metrics={})
     progress_fn(0, metrics)
@@ -264,20 +292,23 @@ def train(
     _sync(device)
     epoch_training_time = time.time() - t
     training_walltime += epoch_training_time
-    current_step = ts.env_steps
+    current_step = ts.env_steps * world
     sps = (num_training_steps_per_epoch * env_step_per_training_step
            / epoch_training_time)
+    loss_means = distributed.mean_metrics(
+        {k: torch.stack([m[k] for m in loss_metrics]).mean()
+         for k in loss_metrics[0]})
     metrics = {
         'training/sps': sps,
         'training/walltime': training_walltime,
-        **{f'training/{k}': torch.stack([m[k] for m in loss_metrics])
-           .mean().item() for k in loss_metrics[0]},
+        **{f'training/{k}': v.item() for k, v in loss_means.items()},
     }
     params_tuple = (ts.normalizer_params, ts.params)
-    if num_evals > 0:
-      metrics = evaluator.run_evaluation(params_tuple, metrics)
-    policy_params_fn(current_step, make_policy, params_tuple)
-    progress_fn(current_step, metrics)
+    if rank == 0:
+      if num_evals > 0:
+        metrics = evaluator.run_evaluation(params_tuple, metrics)
+      policy_params_fn(current_step, make_policy, params_tuple)
+      progress_fn(current_step, metrics)
 
   assert current_step >= num_timesteps, (current_step, num_timesteps)
   return make_policy, (ts.normalizer_params, ts.params), metrics

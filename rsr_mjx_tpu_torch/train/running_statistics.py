@@ -2,9 +2,9 @@
 
 Counterpart of ``rsr_mjx_tpu/train/running_statistics.py``: the state that
 a trained policy's pickle carries, its initial value, the batched Welford
-update, ``normalize`` and ``denormalize``.  On one device there is no
-reduction across replicas (the JAX ``pmap_axis_name``); multi-GPU training
-comes with ROADMAP item 7.
+update, ``normalize`` and ``denormalize``.  ``update`` takes the sum over
+the processes that share the batch from its caller (the JAX
+``pmap_axis_name``).
 """
 
 from __future__ import annotations
@@ -58,24 +58,30 @@ def init_state(obs_size, device='cuda') -> RunningStatisticsState:
       std=leaf_map(ones, obs_size))
 
 
-def update(state: RunningStatisticsState, batch) -> RunningStatisticsState:
+def update(state: RunningStatisticsState, batch, psum=None,
+           replicas: int = 1) -> RunningStatisticsState:
   """Welford update over all leading axes of every leaf of ``batch``, as the
   JAX ``update``: a float32 count, mean + Σ(x − m)/count, summed variance
   + Σ(x − m_old)(x − m_new) clamped at 0, std = sqrt(v / max(count, 1) +
-  1e-6)."""
+  1e-6).  With ``psum`` (a sum over processes, in place) the batch is one
+  process's part of one spread over ``replicas`` processes: the count
+  grows by the local count times ``replicas`` and both sums go through
+  ``psum`` (JAX's ``psum`` over ``pmap_axis_name``)."""
   first = next(iter(batch.values())) if isinstance(batch, dict) else batch
   local = math.prod(first.shape[:-1]) if first.ndim > 1 else 1
-  count = state.count + torch.tensor(local, dtype=torch.float32,
+  psum = psum or (lambda x: x)
+  count = state.count + torch.tensor(local * replicas, dtype=torch.float32,
                                      device=state.count.device)
 
   def mean_update(mean, x):
-    return mean + torch.sum(x.reshape(-1, x.shape[-1]) - mean, dim=0) / count
+    return mean + psum(
+        torch.sum(x.reshape(-1, x.shape[-1]) - mean, dim=0) / count)
 
   mean = leaf_map(mean_update, state.mean, batch)
 
   def var_update(var, old_mean, new_mean, x):
     flat = x.reshape(-1, x.shape[-1])
-    return var + torch.sum((flat - old_mean) * (flat - new_mean), dim=0)
+    return var + psum(torch.sum((flat - old_mean) * (flat - new_mean), dim=0))
 
   summed_variance = leaf_map(var_update, state.summed_variance, state.mean,
                              mean, batch)

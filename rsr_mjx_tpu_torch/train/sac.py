@@ -1,4 +1,5 @@
-"""SAC trainer on one device, with the RSR penalty in the actor loss.
+"""SAC trainer, on one device or one process per device, with the RSR
+penalty in the actor loss.
 
 Counterpart of ``rsr_mjx_tpu/train/sac.py`` with the same argument surface
 and loop arithmetic: ``ceil(min_replay_size / num_envs)`` prefill actor
@@ -19,8 +20,19 @@ replay indices, the SGD noise and the evaluation, each its own stream on
 ``save_params`` pickle (normalizer, policy layers) in the JAX layout,
 which the JAX ``sac.load_params`` reads without torch.
 ``randomization_fn`` works as in ``ppo.train``: one randomised model per
-training env, drawn before the reset; none in the evaluator.  Multi-GPU
-training (ROADMAP item 7) is not ported yet and raises.
+training env, drawn before the reset; none in the evaluator.
+
+Under a ``torch.distributed`` process group each process steps
+``num_envs // world`` envs (their draws as in ``ppo.train``), keeps a ring
+of ``max_replay_size // world`` transitions and draws ``batch_size //
+world`` of them for each SGD step from its own stream, as the JAX
+trainer's per-device rings do (``batch_size · grad_updates_per_step //
+num_devices`` a device), so that an SGD step sees ``batch_size``
+transitions over all processes; its noise is drawn at the local size.
+Each of the three gradients is averaged over the processes, the
+normalizer's sums are summed and the metrics averaged.
+The env steps count all processes (the local count times the world).
+Process 0 alone evaluates, checkpoints and calls ``progress_fn``.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from rsr_mjx_tpu_torch.envs import wrappers
 from rsr_mjx_tpu_torch.envs.core import Env
 from rsr_mjx_tpu_torch.train import acting
 from rsr_mjx_tpu_torch.train import checkpoint as _checkpoint
+from rsr_mjx_tpu_torch.train import distributed
 from rsr_mjx_tpu_torch.train import networks as ppo_networks
 from rsr_mjx_tpu_torch.train import ppo
 from rsr_mjx_tpu_torch.train import replay_buffer
@@ -70,8 +83,10 @@ def sgd_step(ts: TrainingState, losses, transitions: Transition, noise,
   the temperature, critic and actor gradients, each with respect to its
   own parameters and all three at the old parameters (the critic and the
   actor with α = exp(old log α)); then the three Adam steps; then target
-  ← (1 − τ)·target + τ·critics.  ``losses`` are ``sac_losses.make_losses``'
-  three; ``noise`` their three standard-normal draws, in that order.
+  ← (1 − τ)·target + τ·critics.  Each gradient is averaged over the
+  processes (``distributed``) before its step.  ``losses`` are
+  ``sac_losses.make_losses``' three; ``noise`` their three standard-normal
+  draws, in that order.
   Returns the loss metrics and the new α (detached)."""
   alpha_loss, critic_loss, actor_loss = losses
   net = ts.networks
@@ -87,6 +102,8 @@ def sgd_step(ts: TrainingState, losses, transitions: Transition, noise,
     critic_grads = torch.autograd.grad(critic_l, q_params)
     actor_l = actor_loss(ts.normalizer_params, alpha, transitions, noise[2])
     actor_grads = torch.autograd.grad(actor_l, policy_params)
+  for grads in (alpha_grads, critic_grads, actor_grads):
+    distributed.mean_grads_(grads)
   for optimizer, params, grads in (
       (ts.alpha_optimizer, [ts.log_alpha], alpha_grads),
       (ts.q_optimizer, q_params, critic_grads),
@@ -162,7 +179,6 @@ def train(
     randomization_fn: Optional[Callable] = None,
     rsr_loss_scale: float = 1.0,
     max_grad_norm: Optional[float] = None,
-    devices: Optional[list] = None,
     device='cuda',
 ):
   """Train a SAC policy.  Returns (make_policy, (normalizer, networks),
@@ -173,9 +189,12 @@ def train(
   if rsr_loss_scale < 0:
     raise ValueError(
         f'rsr_loss_scale must be non-negative, got {rsr_loss_scale}')
-  if devices is not None and len(devices) > 1:
-    raise NotImplementedError('training on more than one device is not '
-                              'ported yet: ROADMAP item 7')
+  rank, world = distributed.world()
+  envs_local = ppo.local_envs(num_envs)
+  if batch_size % world:
+    raise ValueError(f'batch_size ({batch_size}) is no multiple of the '
+                     f'{world} processes')
+  batch_local = batch_size // world
   if max_replay_size is None:
     max_replay_size = num_timesteps
   # loop arithmetic (sac.py:104-117)
@@ -191,13 +210,15 @@ def train(
       / (num_evals_after_init * env_steps_per_actor_step))
 
   gen_init, gen_env, gen_act, gen_rb, gen_sgd, gen_eval = ppo._generators(
-      seed, ['cpu'] + [device] * 5)
+      seed, ['cpu'] + [device] * 5, own=(3, 4))
+  gen_env = distributed.rows(gen_env, envs_local)
+  gen_act = distributed.rows(gen_act, envs_local)
 
   wrap = wrap_env_fn or wrappers.wrap_for_training
   env = wrap(environment, episode_length=episode_length,
-             action_repeat=action_repeat, num_envs=num_envs,
+             action_repeat=action_repeat, num_envs=envs_local,
              randomization_fn=ppo.randomization_bound(randomization_fn,
-                                                      gen_env, num_envs))
+                                                      gen_env, envs_local))
   obs_size = environment.observation_size
   action_size = environment.action_size
   if not isinstance(obs_size, int):
@@ -227,7 +248,7 @@ def train(
       past_data=past_data, rsr_loss_scale=rsr_loss_scale)
 
   zeros = lambda *shape: torch.zeros(shape, device=device)
-  buffer = replay_buffer.init(max_replay_size, Transition(
+  buffer = replay_buffer.init(max_replay_size // world, Transition(
       observation=zeros(obs_size), action=zeros(action_size),
       reward=zeros(), discount=zeros(), next_observation=zeros(obs_size),
       extras={'policy_extras': {}, 'state_extras': {'truncation': zeros()}}))
@@ -240,20 +261,21 @@ def train(
         env, env_state, policy, gen_act, extra_fields=('truncation',))
     if normalize_observations:
       ts.normalizer_params = running_statistics.update(
-          ts.normalizer_params, transitions.observation)
+          ts.normalizer_params, transitions.observation,
+          distributed.all_sum_, world)
     buffer = replay_buffer.insert(buffer, _transition(transitions))
-    ts.env_steps += env_steps_per_actor_step
+    ts.env_steps += action_repeat * envs_local
     return env_state, buffer
 
   def training_step(ts, env_state, buffer):
     env_state, buffer = actor_step(ts, env_state, buffer)
-    batch = replay_buffer.sample(buffer, batch_size * grad_updates_per_step,
+    batch = replay_buffer.sample(buffer, batch_local * grad_updates_per_step,
                                  gen_rb)
     metrics = []
     for g in range(grad_updates_per_step):
       minibatch = wrappers.tree_map(
-          lambda x: x[g * batch_size:(g + 1) * batch_size], batch)
-      noise = [ppo_networks.standard_normal((batch_size, action_size),
+          lambda x: x[g * batch_local:(g + 1) * batch_local], batch)
+      noise = [ppo_networks.standard_normal((batch_local, action_size),
                                             gen_sgd) for _ in range(3)]
       metrics.append(sgd_step(ts, losses, minibatch, noise, tau,
                               max_grad_norm))
@@ -272,7 +294,7 @@ def train(
       action_repeat=action_repeat, generator=gen_eval)
 
   metrics = {}
-  if num_evals > 1:
+  if rank == 0 and num_evals > 1:
     metrics = evaluator.run_evaluation((ts.normalizer_params, ts.networks),
                                        training_metrics={})
     progress_fn(0, metrics)
@@ -281,7 +303,7 @@ def train(
     env_state, buffer = actor_step(ts, env_state, buffer)
 
   training_walltime = 0.0
-  current_step = ts.env_steps
+  current_step = ts.env_steps * world
   for _ in range(num_evals_after_init):
     t = time.time()
     sgd_metrics = []
@@ -291,21 +313,24 @@ def train(
     ppo._sync(device)
     epoch_time = time.time() - t
     training_walltime += epoch_time
-    current_step = ts.env_steps
+    current_step = ts.env_steps * world
     sps = (env_steps_per_actor_step * num_training_steps_per_epoch
            / epoch_time)
+    sgd_means = distributed.mean_metrics(
+        {k: torch.stack([m[k] for m in sgd_metrics]).mean()
+         for k in (sgd_metrics[0] if sgd_metrics else {})})
     metrics = {
         'training/sps': sps,
         'training/walltime': training_walltime,
-        **{f'training/{k}': torch.stack([m[k] for m in sgd_metrics])
-           .mean().item() for k in (sgd_metrics[0] if sgd_metrics else {})},
+        **{f'training/{k}': v.item() for k, v in sgd_means.items()},
     }
     params = (ts.normalizer_params, ts.networks)
-    if num_evals > 0:
-      metrics = evaluator.run_evaluation(params, metrics)
-    if checkpoint_logdir:
-      save_params(f'{checkpoint_logdir}_sac_{current_step}.pkl', params)
-    progress_fn(current_step, metrics)
+    if rank == 0:
+      if num_evals > 0:
+        metrics = evaluator.run_evaluation(params, metrics)
+      if checkpoint_logdir:
+        save_params(f'{checkpoint_logdir}_sac_{current_step}.pkl', params)
+      progress_fn(current_step, metrics)
 
   assert current_step >= num_timesteps, (current_step, num_timesteps)
   return make_policy, (ts.normalizer_params, ts.networks), metrics

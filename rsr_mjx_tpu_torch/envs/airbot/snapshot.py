@@ -38,17 +38,20 @@ def path(variant: str) -> str:
   return os.path.join(io.ASSETS, f'{name}.npz')
 
 
+def xml(variant: str) -> str:
+  """The MJCF of ``variant``."""
+  if variant == 't_push':
+    return build_tshape_scene()
+  table, cube = FRICTIONS[variant]
+  return build_cube_scene(table_friction=table, cube_friction=cube)
+
+
 def build(variant: str, device='cpu'):
   """Compile the scene of ``variant`` with C MuJoCo."""
-  if variant == 't_push':
-    return io.load_model_from_xml(build_tshape_scene(),
-                                  max_contacts=T_PUSH_MAX_CONTACTS,
-                                  device=device)
-  table, cube = FRICTIONS[variant]
   return io.load_model_from_xml(
-      build_cube_scene(table_friction=table, cube_friction=cube),
-      max_contacts=MAX_CONTACTS, device=device,
-  )
+      xml(variant), device=device,
+      max_contacts=T_PUSH_MAX_CONTACTS if variant == 't_push' else (
+          MAX_CONTACTS))
 
 
 def main() -> None:

@@ -9,8 +9,9 @@ installed; the config's values are applied to the loaded ``Model``
 computes both from inertia and armature).  ``task`` names the scene:
 ``flat_terrain`` (feet-only), ``rough_terrain`` (feet-only on the
 reference heightfield) or ``full_flat`` (full collision, for getup,
-handstand and footstand).  The render-only model of the JAX env
-(``go2/visual.py``) is left out.
+handstand and footstand).  The JAX env's render-only model
+(``_mjm_render``) is compiled on demand by ``visual.render_model``, from
+the task and gains this env keeps (``task``, ``gains``).
 """
 
 from __future__ import annotations
@@ -49,6 +50,9 @@ class Go2Env(core.Env):
                device='cuda', dtype: torch.dtype = torch.float32):
     """``dtype`` is that of the physics: float32, or float64 on the CPU as
     a reference (the CUDA kernels take float32 only)."""
+    self.task = task
+    # (Kp, Kd) as the model takes them: from the config handed in
+    self.gains = (config['Kp'], config['Kd'])
     self._config = Config(config)
     if config_overrides:
       self._config.update_from_flattened_dict(config_overrides)

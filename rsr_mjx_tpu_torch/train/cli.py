@@ -12,13 +12,19 @@ config's ``policy_obs_key`` entry (``SelectObservationWrapper``).
 randomised model per training env; the evaluator keeps the nominal model)
 and refuses an env that has none.  ``--multihost`` trains on one process
 per device (``scripts/train.py``'s flag; ``train.distributed``), started
-by ``torchrun``; process 0 alone writes.
-Rendering and experiment-logging sinks are not ported (ROADMAP items 4
-and 6).
+by ``torchrun``; process 0 alone writes.  ``--use_tb`` logs every
+metric to TensorBoard under ``<logdir>/tb`` (tensorboardX), ``--use_wandb``
+to Weights & Biases; either warns and trains on where its package is
+missing.  ``progress.png``, the evaluation reward against env-steps, is
+drawn once there are two evaluations, where matplotlib imports.
+``--render`` rolls the trained policy out deterministically for
+``--render_steps`` control steps on the device and renders it to
+``<logdir>/rollout.mp4`` (``utils.rendering``); it needs ``mujoco`` and a
+GL backend, checked before training starts.
 
     python -m rsr_mjx_tpu_torch.train.cli --env AirbotCubePushTrain \\
         [--algorithm ppo|sac] [--domain_randomization] [--device cuda] \\
-        [--logdir DIR] ...
+        [--logdir DIR] [--use_tb] [--use_wandb] [--render] ...
     torchrun --nproc_per_node N -m rsr_mjx_tpu_torch.train.cli \\
         --multihost ...
 """
@@ -30,6 +36,7 @@ import functools
 import json
 import os
 import time
+import warnings
 
 # flags that override the tuned value of the same name where the config
 # has it, as scripts/train.py's
@@ -60,6 +67,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                  help='one process per device under torchrun: start the '
                       'process group from its environment (NCCL on cuda, '
                       'gloo on cpu) on cuda:LOCAL_RANK; process 0 writes')
+  p.add_argument('--render', action='store_true',
+                 help='after training, render a deterministic rollout to '
+                      '<logdir>/rollout.mp4 (needs mujoco and a GL backend)')
+  p.add_argument('--render_steps', type=int, default=300,
+                 help='control steps of the --render rollout')
+  p.add_argument('--use_wandb', action='store_true',
+                 help='log metrics to Weights & Biases where installed')
+  p.add_argument('--use_tb', action='store_true',
+                 help='log metrics to TensorBoard (tensorboardX) under '
+                      '<logdir>/tb where installed')
   for name in _INT_FLAGS:
     p.add_argument(f'--{name}', type=int, default=None,
                    help='override the tuned value')
@@ -69,9 +86,81 @@ def parse_args(argv=None) -> argparse.Namespace:
   return p.parse_args(argv)
 
 
+def plot_progress(history, path: str, title: str) -> bool:
+  """The evaluation reward (± its std) against env-steps, saved to
+  ``path``; False where there are fewer than two evaluations or no
+  matplotlib."""
+  rows = [h for h in history if 'eval/episode_reward' in h]
+  if len(rows) < 2:
+    return False
+  try:
+    import matplotlib
+  except ImportError:
+    return False
+  matplotlib.use('Agg')
+  import matplotlib.pyplot as plt
+
+  fig, ax = plt.subplots(figsize=(7, 4))
+  ax.errorbar([h['step'] for h in rows],
+              [h['eval/episode_reward'] for h in rows],
+              yerr=[h.get('eval/episode_reward_std', 0.0) for h in rows],
+              capsize=2)
+  ax.set_xlabel('environment steps')
+  ax.set_ylabel('eval/episode_reward')
+  ax.set_title(title)
+  fig.tight_layout()
+  fig.savefig(path, dpi=110)
+  plt.close(fig)
+  return True
+
+
+def _sinks(args, logdir: str, config: dict):
+  """(wandb run, tensorboardX writer), each None unless asked for and
+  installed; a missing package warns."""
+  wandb_run = tb_writer = None
+  if args.use_wandb:
+    try:
+      import wandb
+    except ImportError:
+      warnings.warn('wandb not installed; skipping --use_wandb')
+    else:
+      wandb_run = wandb.init(project='rsr_mjx_tpu',
+                             name=os.path.basename(logdir), config=config)
+  if args.use_tb:
+    try:
+      from tensorboardX import SummaryWriter
+    except ImportError:
+      warnings.warn('tensorboardX not installed; skipping --use_tb')
+    else:
+      tb_writer = SummaryWriter(os.path.join(logdir, 'tb'))
+  return wandb_run, tb_writer
+
+
+def render(args, make_policy, params, policy_obs_key: str, logdir: str):
+  """A deterministic rollout of the trained policy, rendered to
+  ``<logdir>/rollout.mp4``; returns the path written."""
+  from rsr_mjx_tpu_torch import envs
+  from rsr_mjx_tpu_torch.envs import wrappers
+  from rsr_mjx_tpu_torch.utils import rendering
+
+  video_env = envs.load(args.env, device=args.device)
+  if args.algorithm == 'sac' and not isinstance(video_env.observation_size,
+                                                int):
+    # SAC trained on one entry of the dict observation: feed it the same
+    video_env = wrappers.SelectObservationWrapper(video_env, policy_obs_key)
+  frames = rendering.render_env_rollout(
+      video_env, make_policy(params, deterministic=True),
+      n_steps=args.render_steps, seed=args.seed, device=args.device)
+  return rendering.save_video(frames, os.path.join(logdir, 'rollout.mp4'),
+                              fps=1.0 / video_env.ctrl_dt)
+
+
 def main(argv=None):
   """Train as the flags say; returns (make_policy, params, metrics)."""
   args = parse_args(argv)
+  if args.render:
+    # fail now, not after training: the renderer needs mujoco
+    import mujoco  # noqa: F401
 
   from rsr_mjx_tpu_torch import envs
   from rsr_mjx_tpu_torch.envs import wrappers
@@ -102,23 +191,34 @@ def main(argv=None):
   logdir = args.logdir or os.path.join(
       'logs', f'{args.env}-{algo}-{time.strftime("%Y%m%d-%H%M%S")}')
   ckpt_dir = os.path.join(logdir, 'checkpoints')
+  wandb_run = tb_writer = None
   if main_process:
     os.makedirs(ckpt_dir, exist_ok=True)
+    wandb_run, tb_writer = _sinks(
+        args, logdir, dict(cfg, env=args.env, algorithm=algo))
   history = []
 
   def progress_fn(step, metrics):
     reward = metrics.get('eval/episode_reward', float('nan'))
     print(f'step={step} reward={reward:.3f} '
           f'sps={metrics.get("training/sps", 0.0):.0f}', flush=True)
-    history.append({'step': step, **{k: float(v) for k, v in
-                                     metrics.items()}})
+    scalars = {k: float(v) for k, v in metrics.items()}
+    history.append({'step': step, **scalars})
     with open(os.path.join(logdir, 'progress.json'), 'w') as f:
       json.dump(history, f, indent=1)
+    if wandb_run is not None:
+      wandb_run.log(scalars, step=step)
+    if tb_writer is not None:
+      for k, v in scalars.items():
+        tb_writer.add_scalar(k, v, step)
+    plot_progress(history, os.path.join(logdir, 'progress.png'),
+                  f'{args.env} ({algo})')
 
   def policy_params_fn(step, make_policy, params):
     checkpoint.save(os.path.join(ckpt_dir, f'{step}'), params)
 
   nf_cfg = dict(cfg.pop('network_factory'))
+  obs_key = cfg.pop('policy_obs_key', 'state')
   if algo == 'ppo':
     network_factory = functools.partial(
         ppo_networks.make_ppo_networks,
@@ -132,7 +232,6 @@ def main(argv=None):
         randomization_fn=randomization_fn, device=args.device, **cfg)
     save_params = checkpoint.save_params
   else:
-    obs_key = cfg.pop('policy_obs_key', 'state')
     if not isinstance(env.observation_size, int):
       env = wrappers.SelectObservationWrapper(env, obs_key)
       eval_env = wrappers.SelectObservationWrapper(eval_env, obs_key)
@@ -153,6 +252,14 @@ def main(argv=None):
     save_params(final_path, params)
     print(f'training done; final params at {final_path}', flush=True)
     print(f'final metrics: {metrics}', flush=True)
+    if wandb_run is not None:
+      wandb_run.finish()
+    if tb_writer is not None:
+      tb_writer.close()
+    if args.render:
+      print(f'rollout video at '
+            f'{render(args, make_policy, params, obs_key, logdir)}',
+            flush=True)
   return make_policy, params, metrics
 
 

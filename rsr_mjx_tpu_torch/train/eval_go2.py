@@ -1,8 +1,8 @@
 """Deterministic task-level evaluation of a trained Go2 policy.
 
-Counterpart of ``scripts/eval_go2.py`` without ``--video``.  On the
-joystick tasks it reports what the reward optimises, the command-tracking
-error over alive steps:
+Counterpart of ``scripts/eval_go2.py``.  On the joystick tasks it
+reports what the reward optimises, the command-tracking error over alive
+steps:
   - lin_err = ‖cmd_xy − local_linvel_xy‖ (m/s),
   - ang_err = |cmd_yaw − gyro_z| (rad/s);
 on getup, handstand and footstand the torso's uprightness −g_z/|g| from
@@ -11,14 +11,20 @@ has the criterion (getup: ``_is_upright``, gravity within 0.01 of straight
 down, squared), the share of episodes upright at their last alive step.
 Both with the episode reward and length.  The flags and defaults are the
 JAX script's, plus ``--device``; the parameters are a PPO
-``final_params.pkl`` of either package.
+``final_params.pkl`` of either package.  ``--video PATH`` then rolls one
+env out for ``--video_steps`` control steps on the device (seed + 1),
+recording qpos and, on the joystick, the command and the heading at each
+step, and renders it at 480 × 640 from the ``track`` camera with the
+command arrow (``utils.gait.draw_joystick_command``); the rendering needs
+``mujoco`` and a GL backend.
 
     python -m rsr_mjx_tpu_torch.train.eval_go2 \\
         logs/go2_joystick_50M_r5/final_params.pkl \\
-        [--env Go2JoystickFlatTerrain] [--device cuda]
+        [--env Go2JoystickFlatTerrain] [--device cuda] [--video go2.mp4]
 
 The pieces: ``rollout`` (the episodes, on the device), ``summarize`` (the
-JAX script's numpy post-processing) and ``print_summary`` (its lines).
+JAX script's numpy post-processing), ``print_summary`` (its lines),
+``video_rollout`` (the recorded rollout) and ``render_video``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ def parse_args(argv=None) -> argparse.Namespace:
   p.add_argument('--device', default='cuda',
                  help="device of the envs and the policy ('cpu' for a run "
                       "with the kernels' plain versions)")
+  p.add_argument('--video', default=None, help='mp4 output path')
+  p.add_argument('--video_steps', type=int, default=300)
   return p.parse_args(argv)
 
 
@@ -119,9 +127,60 @@ def print_summary(env_name: str, episode_length: int, joystick: bool,
   print(f'  all finite: {s["finite"]}')
 
 
+def heading(qpos: np.ndarray) -> float:
+  """The yaw of the free joint's quaternion (w, x, y, z) in ``qpos``."""
+  q = qpos[3:7]
+  return float(np.arctan2(2 * (q[0] * q[3] + q[1] * q[2]),
+                          1 - 2 * (q[2] ** 2 + q[3] ** 2)))
+
+
+def video_rollout(env0, policy: Callable, steps: int, seed: int, device,
+                  joystick: bool):
+  """One env of ``policy`` for ``steps`` control steps from the reset of
+  ``seed`` (``rendering.rollout_qpos``): (qpos (steps + 1, nq), commands
+  (steps, 3), headings (steps,)), the last two recorded after each step
+  on the joystick, else empty."""
+  from rsr_mjx_tpu_torch.utils import rendering
+
+  cmds, yaws = [], []
+
+  def record(state):
+    if joystick:
+      cmds.append(state.info['command'][0].cpu().numpy())
+      yaws.append(heading(state.data.qpos[0].cpu().numpy()))
+
+  qpos = rendering.rollout_qpos(env0, lambda obs, g: (policy(obs), {}),
+                                steps, seed, device, on_step=record)
+  return qpos, np.array(cmds).reshape(-1, 3), np.array(yaws)
+
+
+def render_video(env0, qpos: np.ndarray, cmds: np.ndarray, yaws: np.ndarray,
+                 path: str) -> str:
+  """Render the recorded rollout at 480 × 640 from the ``track`` camera,
+  with the command arrow where commands were recorded, to ``path``; the
+  path written."""
+  from rsr_mjx_tpu_torch.utils import gait, rendering
+
+  modify = None
+  if len(cmds):
+    def modify(scn, i):
+      j = min(max(i - 1, 0), len(cmds) - 1)
+      xyz = qpos[i][:3] + np.array([0.0, 0.0, 0.2])
+      gait.draw_joystick_command(scn, cmds[j], xyz, yaws[j],
+                                 scl=abs(cmds[j][0]) + 0.3)
+
+  frames = rendering.render_array(rendering.render_model(env0), qpos,
+                                  height=480, width=640, camera='track',
+                                  modify_scene=modify)
+  return rendering.save_video(frames, path, fps=1.0 / env0.dt)
+
+
 def main(argv=None) -> Dict[str, np.ndarray]:
   """Evaluate as the flags say; returns the summary."""
   args = parse_args(argv)
+  if args.video:
+    # fail now, not after the evaluation: the renderer needs mujoco
+    import mujoco  # noqa: F401
   from rsr_mjx_tpu_torch import envs
   from rsr_mjx_tpu_torch.envs import wrappers
 
@@ -138,6 +197,10 @@ def main(argv=None) -> Dict[str, np.ndarray]:
   summary = summarize(rews, dones, lin_err, ang_err, args.episode_length,
                       upright if has_criterion else None)
   print_summary(args.env, args.episode_length, joystick, summary)
+  if args.video:
+    qpos, cmds, yaws = video_rollout(env0, policy, args.video_steps,
+                                     args.seed + 1, args.device, joystick)
+    print(f'  video: {render_video(env0, qpos, cmds, yaws, args.video)}')
   return summary
 
 

@@ -1,6 +1,7 @@
 """Hardware control loop for the cube-push task.
 
-Copy of ``rsr_mjx_tpu/deploy/control_loop.py`` (numpy only).
+Copy of ``rsr_mjx_tpu/deploy/control_loop.py`` (numpy only); at the end
+it also logs the host time of the policy's calls (``utils.tracing``).
 
 Transport-agnostic re-implementation of the reference control node
 (airbot_sim2real_sl/scripts/sim2real_sl_control_node.py:23-126): a 10 Hz
@@ -23,6 +24,7 @@ from rsr_mjx_tpu_torch.deploy.interface import (
     RobotInterface,
     build_cube_observation,
 )
+from rsr_mjx_tpu_torch.utils import tracing
 
 JOINT_LOWER = np.array([-3.14, -2.96, -0.087, -2.96, -1.74, -3.14])
 JOINT_UPPER = np.array([2.09, 0.17, 3.14, 2.96, 1.74, 3.14])
@@ -40,7 +42,8 @@ def run_cube_push_control_loop(
     obs_log_path: Optional[str] = 'real_obs.txt',
     logger=print,
 ) -> int:
-  """Run until ``max_steps``; returns the number of executed steps.
+  """Run until ``max_steps``; returns the number of executed steps and
+  logs the host time of the policy's calls (span ``deploy.get_action``).
 
   ``policy`` is anything with ``get_action(obs, deterministic=True)``
   (e.g. deploy.PolicyInference).
@@ -106,4 +109,13 @@ def run_cube_push_control_loop(
     else:
       logger(f'Joint movement timeout after {joint_timeout}s; continuing.')
     step_count += 1
+  log_policy_time(logger)
   return step_count
+
+
+def log_policy_time(logger) -> None:
+  """Logs the ``deploy.get_action`` span's calls and host time, where the
+  policy had any (``utils.tracing``)."""
+  text = tracing.report('deploy.')
+  if text:
+    logger(text)

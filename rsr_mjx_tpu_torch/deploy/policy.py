@@ -25,6 +25,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from rsr_mjx_tpu_torch.utils import tracing
+
 # files of a JAX Orbax checkpoint directory
 _ORBAX_FILES = ('_CHECKPOINT_METADATA', '_METADATA', 'manifest.ocdbt')
 _FINAL = 'final_params.pkl'
@@ -154,12 +156,13 @@ class PolicyInference:
       raise ValueError(f'unknown algorithm {algorithm!r}')
     self._policies = {det: policy(det) for det in (True, False)}
 
+  @tracing.span('deploy.get_action')
   @torch.no_grad()
   def get_action(self, observation, deterministic: bool = True) -> np.ndarray:
     """The policy's action for one observation, its first six dims scaled
     for the hardware; the raw action is appended to the action log.
     Deterministic: the distribution's mode; else a sample drawn from
-    ``self.generator``."""
+    ``self.generator``.  Span ``deploy.get_action``."""
     obs = torch.from_numpy(np.asarray(observation, np.float32)).to(
         self.device)
     action = self._policies[deterministic](obs, self.generator)

@@ -16,7 +16,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from rsr_mjx_tpu_torch.deploy.control_loop import JOINT_LOWER, JOINT_UPPER
+from rsr_mjx_tpu_torch.deploy.control_loop import (
+    JOINT_LOWER,
+    JOINT_UPPER,
+    log_policy_time,
+)
 from rsr_mjx_tpu_torch.deploy.interface import RobotInterface
 
 # reference target geometry (sim2real_t_node.py:63-69)
@@ -89,7 +93,8 @@ def run_t_push_control_loop(
     obs_log_path: Optional[str] = 'real_obs.txt',
     logger=print,
 ) -> int:
-  """10 Hz T-push loop (sim2real_t_node.py:40-106)."""
+  """10 Hz T-push loop (sim2real_t_node.py:40-106); logs the policy's
+  host time as the cube-push loop does."""
   period = 1.0 / rate_hz
   step_count = 0
   # endpoint bearing target (sim2real_t_node.py:50-55)
@@ -135,4 +140,5 @@ def run_t_push_control_loop(
     if not reached:
       logger(f'Joint movement timeout after {joint_timeout}s; continuing.')
     step_count += 1
+  log_policy_time(logger)
   return step_count

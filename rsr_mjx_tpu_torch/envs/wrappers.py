@@ -29,6 +29,7 @@ from typing import Callable, Optional
 import torch
 
 from rsr_mjx_tpu_torch.envs.core import Env, State, Wrapper
+from rsr_mjx_tpu_torch.utils import tracing
 
 
 def tree_map(fn, *trees):
@@ -218,8 +219,12 @@ class NonFiniteGuardWrapper(Wrapper):
 
 
 class AutoResetWrapper(Wrapper):
-  """Restores the cached first state where done."""
+  """Restores the cached first state where done.  The outermost wrapper
+  of ``wrap_for_training``: its ``step`` and ``reset`` are the spans
+  ``env.step`` and ``env.reset`` of ``utils.tracing`` (their self time is
+  the env layer outside the physics)."""
 
+  @tracing.span('env.reset')
   def reset(self, *args) -> State:
     state = self.env.reset(*args)
     info = dict(state.info)
@@ -227,6 +232,7 @@ class AutoResetWrapper(Wrapper):
     info['first_obs'] = state.obs
     return state.replace(info=info)
 
+  @tracing.span('env.step')
   def step(self, state: State, action: torch.Tensor) -> State:
     info = dict(state.info)
     if 'steps' in info:

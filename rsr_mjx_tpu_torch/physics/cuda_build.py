@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import threading
 
+from rsr_mjx_tpu_torch.utils import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, 'build')
@@ -55,9 +57,11 @@ def _stale(name: str) -> bool:
   return any(os.path.getmtime(os.path.join(CSRC, f)) > t for f in deps)
 
 
+@tracing.span('kernels.build')
 def build_all(verbose: bool = False) -> dict:
-  """Compile every stale kernel library, all ``nvcc`` runs in parallel.
-  Returns {name: compiler output}; raises if any build fails."""
+  """Compile every stale kernel library, all ``nvcc`` runs in parallel
+  (span ``kernels.build``; counter ``kernels.builds``, the libraries
+  built).  Returns {name: compiler output}; raises if any build fails."""
   os.makedirs(BUILD_DIR, exist_ok=True)
   nvcc = _nvcc()
   procs = {}
@@ -77,6 +81,7 @@ def build_all(verbose: bool = False) -> dict:
       failed.append(name)
     else:
       os.replace(tmp, _lib_path(name))
+  tracing.count('kernels.builds', len(procs) - len(failed))
   if failed:
     raise RuntimeError('nvcc failed for ' + ', '.join(
         f'{n}:\n{logs[n]}' for n in failed))

@@ -25,6 +25,7 @@ from rsr_mjx_tpu_torch.physics import fwd_fused as _ff
 from rsr_mjx_tpu_torch.physics import lie
 from rsr_mjx_tpu_torch.physics import sensors as _sensors
 from rsr_mjx_tpu_torch.physics.types import Contact, Data, JointType, Model
+from rsr_mjx_tpu_torch.utils import tracing
 
 
 def _fp32() -> None:
@@ -87,15 +88,20 @@ def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt):
   return out
 
 
+@tracing.span('physics.step')
 def step(m: Model, d: Data, sensors: bool = True) -> Data:
   """One physics step of every env in the batch: the fused forward chain
   and the implicit-damping solve, the sensors (unless ``sensors`` is
-  False), then semi-implicit Euler integration."""
+  False), then semi-implicit Euler integration.  Span ``physics.step``
+  (the chain's stages nest in it), counter ``physics.substeps``."""
+  tracing.count('physics.substeps')
   _fp32()
   d, qacc_i = _ff.forward_lanes(m, d, implicit=True)
   if sensors:
-    d = _sensors.sensordata(m, d)
-  h = m.opt.timestep
-  qvel = d.qvel + h * qacc_i
-  qpos = _integrate_pos(m, d.qpos, qvel, h)
-  return d.replace(qpos=qpos, qvel=qvel, qacc=qacc_i, time=d.time + h)
+    with tracing.span('physics.sensors'):
+      d = _sensors.sensordata(m, d)
+  with tracing.span('physics.integrate'):
+    h = m.opt.timestep
+    qvel = d.qvel + h * qacc_i
+    qpos = _integrate_pos(m, d.qpos, qvel, h)
+    return d.replace(qpos=qpos, qvel=qvel, qacc=qacc_i, time=d.time + h)

@@ -50,6 +50,7 @@ from rsr_mjx_tpu_torch.physics import linalg_kernels as _lk
 from rsr_mjx_tpu_torch.physics import solver as _solver
 from rsr_mjx_tpu_torch.physics import statics
 from rsr_mjx_tpu_torch.physics.types import Data, IntegratorType, Model
+from rsr_mjx_tpu_torch.utils import tracing
 
 # mjDSBL_EULERDAMP: <flag eulerdamp="disable"/> makes Euler fully explicit
 _DSBL_EULERDAMP = 32768
@@ -76,10 +77,13 @@ def use_basis(m: Model) -> bool:
 def _chain(m: Model, kl, sl, lv, x0, h, implicit: bool, basis: bool,
            grad: bool):
   """kinematics → smooth dynamics → narrow phase → assembly → solve →
-  containment → implicit solve, all in lanes layout.  ``kl``, ``sl``,
-  ``lv`` are the stages' leaves (``sl`` and ``lv`` without the kinematics
-  fields, which come from ``kl`` here), x0 (nv, B) the warm start, h the
-  timestep.  ``grad`` sends the generic-row solve through
+  containment → implicit solve, all in lanes layout, each stage a span of
+  ``utils.tracing`` (``physics.kinematics``, ``.smooth``, ``.assembly``:
+  narrow phase and K2, ``.solve``: K3 or K4 and the containment,
+  ``.implicit``: the second K1).  ``kl``, ``sl``, ``lv`` are the stages'
+  leaves (``sl`` and ``lv`` without the kinematics fields, which come from
+  ``kl`` here), x0 (nv, B) the warm start, h the timestep.  ``grad``
+  sends the generic-row solve through
   ``solver.NewtonSolveIFT``.  Returns the kinematics outputs, the smooth outputs,
   (x, force, qfrc, dist (B, ncon)) and, when ``implicit``, qacc_implicit,
   all lanes except dist."""
@@ -89,27 +93,32 @@ def _chain(m: Model, kl, sl, lv, x0, h, implicit: bool, basis: bool,
   nv, nu = m.nv, m.nu
   B = kl.qpos.shape[-1]
 
-  kout = _lkin.kinematics_lanes(m, kl)
-  sl = sl._replace(cdof=kout.cdof, cdof_anchor=kout.cdof_anchor,
-                   ximat=kout.ximat, xipos=kout.xipos,
-                   subtree_com=kout.subtree_com)
-  smooth = _ls.smooth_lanes(m, sl)
+  with tracing.span('physics.kinematics'):
+    kout = _lkin.kinematics_lanes(m, kl)
+  with tracing.span('physics.smooth'):
+    sl = sl._replace(cdof=kout.cdof, cdof_anchor=kout.cdof_anchor,
+                     ximat=kout.ximat, xipos=kout.xipos,
+                     subtree_com=kout.subtree_com)
+    smooth = _ls.smooth_lanes(m, sl)
   qM_l, qsm_l, qaccsm_l = smooth[0], smooth[6], smooth[7]
   lv = lv._replace(cdof=kout.cdof, cdof_anchor=kout.cdof_anchor,
                    geom_xpos=kout.geom_xpos, geom_xmat=kout.geom_xmat)
   qM_c, a0_c = qM_l.contiguous(), qaccsm_l.contiguous()
-  if basis:
-    n_struct = lay.n_eq + lay.n_fri + lay.n_lim
-    (J_s, aref_s, D_s, fl_s, dist_bm, U, arefU, D_c, naxes) = (
-        _lanes.assemble_lanes(m, lv, basis=True))
-    xt, force_l, qft_l = _lk.newton_lanes_pyr_t(
-        kernel_iters, ls_eff, lay.kind[:n_struct], qM_c, a0_c, x0,
-        J_s, aref_s, D_s, fl_s, U, arefU, D_c, naxes,
-    )
-  else:
-    J_l, aref_l, D_l, fl_l, dist_bm = _lanes.assemble_lanes(
-        m, lv, basis=False)
-    if grad:
+  with tracing.span('physics.assembly'):
+    if basis:
+      n_struct = lay.n_eq + lay.n_fri + lay.n_lim
+      (J_s, aref_s, D_s, fl_s, dist_bm, U, arefU, D_c, naxes) = (
+          _lanes.assemble_lanes(m, lv, basis=True))
+    else:
+      J_l, aref_l, D_l, fl_l, dist_bm = _lanes.assemble_lanes(
+          m, lv, basis=False)
+  with tracing.span('physics.solve'):
+    if basis:
+      xt, force_l, qft_l = _lk.newton_lanes_pyr_t(
+          kernel_iters, ls_eff, lay.kind[:n_struct], qM_c, a0_c, x0,
+          J_s, aref_s, D_s, fl_s, U, arefU, D_c, naxes,
+      )
+    elif grad:
       x, f, q = _solver.NewtonSolveIFT.apply(
           lay.kind, kernel_iters, ls_eff, qM_c.permute(2, 0, 1), a0_c.t(),
           x0.t(), J_l.permute(2, 1, 0), aref_l.t(), D_l.t(), fl_l.t())
@@ -119,35 +128,36 @@ def _chain(m: Model, kl, sl, lv, x0, h, implicit: bool, basis: bool,
           lay.kind, kernel_iters, ls_eff, qM_c, a0_c, x0, J_l, aref_l, D_l,
           fl_l,
       )
-  # containment: an env whose solve went non-finite falls back to its
-  # unconstrained acceleration (MuJoCo's mjWARN_BADQACC counterpart)
-  ok = (torch.all(torch.isfinite(xt), dim=0)
-        & torch.all(torch.isfinite(qft_l), dim=0))[None]
-  xt = torch.where(ok, xt, qaccsm_l)
-  force_l = torch.where(ok, force_l, torch.zeros_like(force_l))
-  qft_l = torch.where(ok, qft_l, torch.zeros_like(qft_l))
+    # containment: an env whose solve went non-finite falls back to its
+    # unconstrained acceleration (MuJoCo's mjWARN_BADQACC counterpart)
+    ok = (torch.all(torch.isfinite(xt), dim=0)
+          & torch.all(torch.isfinite(qft_l), dim=0))[None]
+    xt = torch.where(ok, xt, qaccsm_l)
+    force_l = torch.where(ok, force_l, torch.zeros_like(force_l))
+    qft_l = torch.where(ok, qft_l, torch.zeros_like(qft_l))
   out = tuple(kout) + tuple(smooth) + (xt, force_l, qft_l, dist_bm)
   if not implicit:
     return out
 
-  euler_nodamp = (m.opt.integrator == IntegratorType.EULER
-                  and bool(m.opt.disableflags & _DSBL_EULERDAMP))
-  if euler_nodamp:
-    return out + (xt.clone(),)
-  # M + h·(diag(damping) − momentᵀ·dgain·moment); for the joint
-  # transmissions admitted here the actuator term is diagonal:
-  # gear²·dgain at each actuated dof
-  diag = sl.dof_damping.expand(nv, B)
-  if m.opt.integrator == IntegratorType.IMPLICITFAST and nu:
-    dgain = sl.gainprm[:, 2] * sl.ctrl + sl.biasprm[:, 2]  # (nu, B)
-    gear0 = sl.gear[:, 0]
-    onehot_vu = statics.table(m, 'onehot_vu', lambda: _ls.onehot_vu(m),
-                              diag.device, diag.dtype)
-    diag = diag - torch.tensordot(onehot_vu, gear0 * (dgain * gear0),
-                                  dims=1)
-  eye = torch.eye(nv, dtype=qM_l.dtype, device=qM_l.device)[:, :, None]
-  MhD = qM_l + eye * (h * diag)[:, None, :]
-  qit = _lk.spd_solve(MhD.contiguous(), (qsm_l + qft_l).contiguous())
+  with tracing.span('physics.implicit'):
+    euler_nodamp = (m.opt.integrator == IntegratorType.EULER
+                    and bool(m.opt.disableflags & _DSBL_EULERDAMP))
+    if euler_nodamp:
+      return out + (xt.clone(),)
+    # M + h·(diag(damping) − momentᵀ·dgain·moment); for the joint
+    # transmissions admitted here the actuator term is diagonal:
+    # gear²·dgain at each actuated dof
+    diag = sl.dof_damping.expand(nv, B)
+    if m.opt.integrator == IntegratorType.IMPLICITFAST and nu:
+      dgain = sl.gainprm[:, 2] * sl.ctrl + sl.biasprm[:, 2]  # (nu, B)
+      gear0 = sl.gear[:, 0]
+      onehot_vu = statics.table(m, 'onehot_vu', lambda: _ls.onehot_vu(m),
+                                diag.device, diag.dtype)
+      diag = diag - torch.tensordot(onehot_vu, gear0 * (dgain * gear0),
+                                    dims=1)
+    eye = torch.eye(nv, dtype=qM_l.dtype, device=qM_l.device)[:, :, None]
+    MhD = qM_l + eye * (h * diag)[:, None, :]
+    qit = _lk.spd_solve(MhD.contiguous(), (qsm_l + qft_l).contiguous())
   return out + (qit,)
 
 

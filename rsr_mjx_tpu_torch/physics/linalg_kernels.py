@@ -25,7 +25,8 @@ by ``cuda_build``) or raises.  There is no fallback from the kernel to the
 plain version, to a library call or to the CPU.
 
 Each wrapper counts its kernel launches in ``LAUNCHES[<wrapper name>]``,
-incremented where the kernel is launched and nowhere else.
+incremented where the kernel is launched and nowhere else (the counter
+group ``launches`` of ``utils.tracing``).
 
 The kernels take float32; the physics runs in true fp32 (see
 ``rsr_mjx_tpu_torch.physics.forward`` for the TF32 switches).  The plain
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from rsr_mjx_tpu_torch.physics import cuda_build
+from rsr_mjx_tpu_torch.utils import tracing
 
 # row kinds (constraint.py); kept here too so this module imports nothing
 # of the assembly
@@ -57,14 +59,12 @@ _H100_SMS = 132
 _PART_WORDS = 128
 
 
-# kernel launches of each wrapper; zero them with
-# LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
-LAUNCHES = {
-    'spd_solve_lanes': 0,
-    'contact_select_lanes': 0,
-    'newton_lanes_pyr_t': 0,
-    '_newton_lanes_core': 0,
-}
+# kernel launches of each wrapper, the tracing registry's counter group
+# 'launches'; zero them with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+LAUNCHES = tracing.group('launches')
+LAUNCHES.update(dict.fromkeys(('spd_solve_lanes', 'contact_select_lanes',
+                               'newton_lanes_pyr_t', '_newton_lanes_core'),
+                              0))
 
 
 def _check(name: str, t: torch.Tensor, shape, ref: torch.Tensor) -> None:

@@ -22,6 +22,7 @@ import torch
 from rsr_mjx_tpu_torch.envs.core import Env, State
 from rsr_mjx_tpu_torch.envs.wrappers import tree_map
 from rsr_mjx_tpu_torch.train.losses import Transition
+from rsr_mjx_tpu_torch.utils import tracing
 
 Policy = Callable[[torch.Tensor, torch.Generator], Tuple[torch.Tensor, dict]]
 
@@ -49,13 +50,15 @@ def generate_unroll(env: Env, env_state: State, policy: Policy,
                     generator: torch.Generator, unroll_length: int,
                     extra_fields: Sequence[str] = ()
                     ) -> Tuple[State, Transition]:
-  """``unroll_length`` steps; transitions stacked time-major [T, B, ...]."""
-  steps = []
-  for _ in range(unroll_length):
-    env_state, transition = actor_step(env, env_state, policy, generator,
-                                       extra_fields)
-    steps.append(transition)
-  return env_state, tree_map(lambda *xs: torch.stack(xs), *steps)
+  """``unroll_length`` steps; transitions stacked time-major [T, B, ...].
+  Span ``ppo.unroll``."""
+  with tracing.span('ppo.unroll'):
+    steps = []
+    for _ in range(unroll_length):
+      env_state, transition = actor_step(env, env_state, policy, generator,
+                                         extra_fields)
+      steps.append(transition)
+    return env_state, tree_map(lambda *xs: torch.stack(xs), *steps)
 
 
 class Evaluator:

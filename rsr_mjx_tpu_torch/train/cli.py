@@ -6,8 +6,10 @@ command line over it, ``ppo.train`` or ``sac.train`` on one device,
 ``progress.json`` after every epoch, a checkpoint after every epoch (PPO:
 the directory ``<logdir>/checkpoints/<step>``; SAC:
 ``<logdir>/checkpoints/run_sac_<step>.pkl``) and ``final_params.pkl`` at
-the end.  SAC on an env with dict observations feeds the policy the
-config's ``policy_obs_key`` entry (``SelectObservationWrapper``).
+the end, with ``tracing.json``: the run's host time by span and its
+counters (``utils.tracing.snapshot``).  SAC on an env with dict
+observations feeds the policy the config's ``policy_obs_key`` entry
+(``SelectObservationWrapper``).
 ``--domain_randomization`` trains on the env's registered randomiser (one
 randomised model per training env; the evaluator keeps the nominal model)
 and refuses an env that has none.  ``--multihost`` trains on one process
@@ -167,6 +169,7 @@ def main(argv=None):
   from rsr_mjx_tpu_torch.train import checkpoint, configs, distributed
   from rsr_mjx_tpu_torch.train import networks as ppo_networks
   from rsr_mjx_tpu_torch.train import ppo, sac, sac_networks
+  from rsr_mjx_tpu_torch.utils import tracing
 
   algo = args.algorithm
   randomization_fn = None
@@ -250,6 +253,8 @@ def main(argv=None):
   if main_process:
     final_path = os.path.join(logdir, 'final_params.pkl')
     save_params(final_path, params)
+    with open(os.path.join(logdir, 'tracing.json'), 'w') as f:
+      json.dump(tracing.snapshot(), f, indent=1)
     print(f'training done; final params at {final_path}', flush=True)
     print(f'final metrics: {metrics}', flush=True)
     if wandb_run is not None:

@@ -33,6 +33,7 @@ from torch.nn import functional as F
 from rsr_mjx_tpu_torch.envs import core
 from rsr_mjx_tpu_torch.train import running_statistics
 from rsr_mjx_tpu_torch.train.running_statistics import RunningStatisticsState
+from rsr_mjx_tpu_torch.utils import tracing
 
 
 class MLP(nn.Module):
@@ -343,13 +344,15 @@ def make_policy(normalizer: RunningStatisticsState, params, device='cuda',
   parameters: the normalizer, ``PPONetworks.policy_logits`` on entry
   ``obs_key`` of a dict observation, the distribution's mode
   (``make_inference_fn(..., deterministic=True)``).  Where the normalizer
-  is over a dict observation, the policy also takes that entry alone."""
+  is over a dict observation, the policy also takes that entry alone.
+  Each call is the span ``policy.act``."""
   weights = networks_from_numpy(normalizer, params, device, obs_key,
                                 value_obs_key)
   policy = make_inference_fn(weights[1], running_statistics.normalize)(
       weights, deterministic=True)
   by_key = isinstance(weights[0].mean, dict)
 
+  @tracing.span('policy.act')
   def act(obs):
     if by_key and not isinstance(obs, dict):
       obs = {obs_key: obs}

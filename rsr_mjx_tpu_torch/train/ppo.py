@@ -51,6 +51,7 @@ from rsr_mjx_tpu_torch.train import distributed
 from rsr_mjx_tpu_torch.train import losses as ppo_losses
 from rsr_mjx_tpu_torch.train import networks as ppo_networks
 from rsr_mjx_tpu_torch.train import running_statistics
+from rsr_mjx_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -85,19 +86,21 @@ def minibatch_step(networks, optimizer, normalizer_params, data,
   """One SGD step on a [B, T] minibatch: the PPO loss and its gradient,
   its mean over the processes (``distributed``), the clip, one Adam step.
   Returns the loss metrics; the clipped gradients stay in each
-  parameter's ``.grad``."""
-  optimizer.zero_grad(set_to_none=True)
-  with torch.enable_grad():
-    loss, metrics = ppo_losses.compute_ppo_loss(
-        networks, normalizer_params, data, entropy_noise, **loss_kwargs)
-    loss.backward()
-  distributed.mean_grads_([p.grad for p in networks.parameters()])
-  if max_grad_norm is not None:
-    with torch.no_grad():
-      clip_by_global_norm_([p.grad for p in networks.parameters()],
-                           max_grad_norm)
-  optimizer.step()
-  return metrics
+  parameter's ``.grad``.  Span ``ppo.minibatch_step``: the host's time,
+  the device's work not waited for."""
+  with tracing.span('ppo.minibatch_step'):
+    optimizer.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+      loss, metrics = ppo_losses.compute_ppo_loss(
+          networks, normalizer_params, data, entropy_noise, **loss_kwargs)
+      loss.backward()
+    distributed.mean_grads_([p.grad for p in networks.parameters()])
+    if max_grad_norm is not None:
+      with torch.no_grad():
+        clip_by_global_norm_([p.grad for p in networks.parameters()],
+                             max_grad_norm)
+    optimizer.step()
+    return metrics
 
 
 def permutation(n: int, generator: torch.Generator) -> torch.Tensor:
@@ -178,102 +181,106 @@ def train(
 ):
   """Train a PPO policy.  Returns (make_policy, (normalizer, networks),
   metrics), as the JAX ``train``; ``environment`` must live on
-  ``device``, this process's device under a process group."""
-  if batch_size * num_minibatches % num_envs:
-    raise ValueError(f'batch_size * num_minibatches ({batch_size} * '
-                     f'{num_minibatches}) is no multiple of num_envs '
-                     f'({num_envs})')
-  rank, world = distributed.world()
-  envs_local = local_envs(num_envs)
-  if batch_size % world:
-    raise ValueError(f'batch_size ({batch_size}) is no multiple of the '
-                     f'{world} processes')
-  # loop arithmetic (RSR/train.py:150-168)
-  env_step_per_training_step = (
-      batch_size * unroll_length * num_minibatches * action_repeat)
-  num_evals_after_init = max(num_evals - 1, 1)
-  num_training_steps_per_epoch = math.ceil(
-      num_timesteps / (num_evals_after_init * env_step_per_training_step))
-  unrolls_per_step = batch_size * num_minibatches // num_envs
+  ``device``, this process's device under a process group.  Span
+  ``ppo.setup``: from the entry to the evaluator's build (networks,
+  restore, the env's reset), before any evaluation or training step."""
+  with tracing.span('ppo.setup'):
+    if batch_size * num_minibatches % num_envs:
+      raise ValueError(f'batch_size * num_minibatches ({batch_size} * '
+                       f'{num_minibatches}) is no multiple of num_envs '
+                       f'({num_envs})')
+    rank, world = distributed.world()
+    envs_local = local_envs(num_envs)
+    if batch_size % world:
+      raise ValueError(f'batch_size ({batch_size}) is no multiple of the '
+                       f'{world} processes')
+    # loop arithmetic (RSR/train.py:150-168)
+    env_step_per_training_step = (
+        batch_size * unroll_length * num_minibatches * action_repeat)
+    num_evals_after_init = max(num_evals - 1, 1)
+    num_training_steps_per_epoch = math.ceil(
+        num_timesteps / (num_evals_after_init * env_step_per_training_step))
+    unrolls_per_step = batch_size * num_minibatches // num_envs
 
-  gen_init, gen_env, gen_act, gen_sgd, gen_eval = _generators(
-      seed, ['cpu'] + [device] * 4, own=(3,))
-  gen_env = distributed.rows(gen_env, envs_local)
-  gen_act = distributed.rows(gen_act, envs_local)
+    gen_init, gen_env, gen_act, gen_sgd, gen_eval = _generators(
+        seed, ['cpu'] + [device] * 4, own=(3,))
+    gen_env = distributed.rows(gen_env, envs_local)
+    gen_act = distributed.rows(gen_act, envs_local)
 
-  env = wrappers.wrap_for_training(
-      environment, episode_length=episode_length, action_repeat=action_repeat,
-      num_envs=envs_local,
-      randomization_fn=randomization_bound(randomization_fn, gen_env,
-                                           envs_local))
-  obs_size = environment.observation_size
-  action_size = environment.action_size
-  network = network_factory(obs_size, action_size).init(gen_init).to(device)
-  normalize_fn = (running_statistics.normalize if normalize_observations
-                  else None)
-  make_policy = ppo_networks.make_inference_fn(network, normalize_fn)
-  optimizer = make_optimizer(network.parameters(), learning_rate)
-  normalizer = running_statistics.init_state(obs_size, device)
+    env = wrappers.wrap_for_training(
+        environment, episode_length=episode_length, action_repeat=action_repeat,
+        num_envs=envs_local,
+        randomization_fn=randomization_bound(randomization_fn, gen_env,
+                                             envs_local))
+    obs_size = environment.observation_size
+    action_size = environment.action_size
+    network = network_factory(obs_size, action_size).init(gen_init).to(device)
+    normalize_fn = (running_statistics.normalize if normalize_observations
+                    else None)
+    make_policy = ppo_networks.make_inference_fn(network, normalize_fn)
+    optimizer = make_optimizer(network.parameters(), learning_rate)
+    normalizer = running_statistics.init_state(obs_size, device)
 
-  if restore_checkpoint_path is not None:
-    normalizer, state_dict = _checkpoint.restore(restore_checkpoint_path,
-                                                 device)
-    network.load_state_dict(state_dict)
-  ts = TrainingState(optimizer, network, normalizer, 0)
+    if restore_checkpoint_path is not None:
+      normalizer, state_dict = _checkpoint.restore(restore_checkpoint_path,
+                                                   device)
+      network.load_state_dict(state_dict)
+    ts = TrainingState(optimizer, network, normalizer, 0)
 
-  if num_timesteps == 0:
-    return make_policy, (ts.normalizer_params, ts.params), {}
+    if num_timesteps == 0:
+      return make_policy, (ts.normalizer_params, ts.params), {}
 
-  loss_kwargs = dict(
-      past_data=past_data, entropy_cost=entropy_cost,
-      discounting=discounting, reward_scaling=reward_scaling,
-      gae_lambda=gae_lambda, clipping_epsilon=clipping_epsilon,
-      normalize_advantage=normalize_advantage, rsr_loss_scale=rsr_loss_scale)
+    loss_kwargs = dict(
+        past_data=past_data, entropy_cost=entropy_cost,
+        discounting=discounting, reward_scaling=reward_scaling,
+        gae_lambda=gae_lambda, clipping_epsilon=clipping_epsilon,
+        normalize_advantage=normalize_advantage, rsr_loss_scale=rsr_loss_scale)
 
-  def training_step(ts: TrainingState, env_state):
-    policy = make_policy((ts.normalizer_params, ts.params))
-    unrolls = []
-    for _ in range(unrolls_per_step):
-      env_state, data = acting.generate_unroll(
-          env, env_state, policy, gen_act, unroll_length,
-          extra_fields=('truncation',))
-      unrolls.append(data)
-    # (iters, T, B, ...) → (iters·B, T, ...)
-    data = tree_map(lambda *xs: torch.stack(xs).swapaxes(1, 2).flatten(0, 1),
-                    *unrolls)
-    normalizer = ts.normalizer_params
-    if normalize_observations:
-      normalizer = running_statistics.update(
-          normalizer, data.observation, distributed.all_sum_, world)
-    n = data.reward.shape[0]
-    metrics = []
-    for _ in range(num_updates_per_batch):
-      perm = permutation(n, gen_sgd)
-      shuffled = tree_map(
-          lambda x: x[perm].reshape((num_minibatches, -1) + x.shape[1:]),
-          data)
-      for i in range(num_minibatches):
-        minibatch = tree_map(lambda x: x[i], shuffled)
-        noise = ppo_networks.standard_normal(
-            (unroll_length, n // num_minibatches, action_size), gen_sgd)
-        metrics.append(minibatch_step(ts.params, ts.optimizer, normalizer,
-                                      minibatch, noise, loss_kwargs,
-                                      max_grad_norm))
-    ts = TrainingState(ts.optimizer, ts.params, normalizer,
-                       ts.env_steps + env_step_per_training_step // world)
-    return ts, env_state, metrics
+    def training_step(ts: TrainingState, env_state):
+      policy = make_policy((ts.normalizer_params, ts.params))
+      unrolls = []
+      for _ in range(unrolls_per_step):
+        env_state, data = acting.generate_unroll(
+            env, env_state, policy, gen_act, unroll_length,
+            extra_fields=('truncation',))
+        unrolls.append(data)
+      # (iters, T, B, ...) → (iters·B, T, ...)
+      data = tree_map(lambda *xs: torch.stack(xs).swapaxes(1, 2).flatten(0, 1),
+                      *unrolls)
+      normalizer = ts.normalizer_params
+      if normalize_observations:
+        with tracing.span('ppo.normalizer_update'):
+          normalizer = running_statistics.update(
+              normalizer, data.observation, distributed.all_sum_, world)
+      n = data.reward.shape[0]
+      metrics = []
+      for _ in range(num_updates_per_batch):
+        perm = permutation(n, gen_sgd)
+        shuffled = tree_map(
+            lambda x: x[perm].reshape((num_minibatches, -1) + x.shape[1:]),
+            data)
+        for i in range(num_minibatches):
+          minibatch = tree_map(lambda x: x[i], shuffled)
+          noise = ppo_networks.standard_normal(
+              (unroll_length, n // num_minibatches, action_size), gen_sgd)
+          metrics.append(minibatch_step(ts.params, ts.optimizer, normalizer,
+                                        minibatch, noise, loss_kwargs,
+                                        max_grad_norm))
+      ts = TrainingState(ts.optimizer, ts.params, normalizer,
+                         ts.env_steps + env_step_per_training_step // world)
+      return ts, env_state, metrics
 
-  env_state = env.reset(gen_env)
+    env_state = env.reset(gen_env)
 
-  eval_wrapped = wrappers.EvalWrapper(wrappers.wrap_for_training(
-      eval_env if eval_env is not None else environment,
-      episode_length=episode_length, action_repeat=action_repeat,
-      num_envs=num_eval_envs))
-  evaluator = acting.Evaluator(
-      eval_wrapped, functools.partial(make_policy,
-                                      deterministic=deterministic_eval),
-      num_eval_envs=num_eval_envs, episode_length=episode_length,
-      action_repeat=action_repeat, generator=gen_eval)
+    eval_wrapped = wrappers.EvalWrapper(wrappers.wrap_for_training(
+        eval_env if eval_env is not None else environment,
+        episode_length=episode_length, action_repeat=action_repeat,
+        num_envs=num_eval_envs))
+    evaluator = acting.Evaluator(
+        eval_wrapped, functools.partial(make_policy,
+                                        deterministic=deterministic_eval),
+        num_eval_envs=num_eval_envs, episode_length=episode_length,
+        action_repeat=action_repeat, generator=gen_eval)
 
   metrics = {}
   training_walltime = 0.0

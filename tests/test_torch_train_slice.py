@@ -254,6 +254,12 @@ def test_cli_writes_progress_and_final_params(tmp_path):
   assert [p['step'] for p in progress] == [8]
   assert np.isfinite(progress[0]['training/total_loss'])
   assert os.listdir(logdir / 'checkpoints') == ['8']
+  # the run's host time by span and its counters (utils.tracing)
+  traced = json.loads((logdir / 'tracing.json').read_text())
+  assert {'ppo.setup', 'ppo.unroll', 'ppo.minibatch_step',
+          'ppo.normalizer_update', 'env.step', 'physics.step'} <= set(
+              traced['spans'])
+  assert traced['counters']['physics.substeps'] > 0
   normalizer, params = pnets.load_ppo_params(str(logdir / 'final_params.pkl'))
   want_norm, want = pnets.ppo_params_to_numpy(norm, net)
   jax.tree.map(np.testing.assert_array_equal, params, want)

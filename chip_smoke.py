@@ -38,8 +38,18 @@ batch no other path sends to the kernels) and the scaling sweep
 (``python -m rsr_mjx_tpu_torch.bench_scaling``).  Rasterising those
 rollouts into frames needs ``mujoco`` and a GL context, which the card
 machine lacks: phase 12 checks the qpos that would be rendered, not
-frames.  Phases; any failure exits non-zero before the result line is
-printed:
+frames.
+
+On the card every physics substep outside the tuning gradient is replayed
+from a CUDA graph (``physics/graphed.py``), and a replay calls no kernel
+wrapper: the launch counts the phases check (``linalg_kernels.LAUNCHES``)
+are inferred there, the capture's counts added at each replay.  Each
+``profile_control_step`` holds them to the card: the K1-K4 kernels a
+profiled control step ran, counted by name in the device trace, equal the
+counts.  The kernels' recorded inputs come from one eager control step
+(``record_calls``); the paths measured run as they run for a user.
+
+Phases; any failure exits non-zero before the result line is printed:
 
   1. device   a CUDA card is required (no CPU path); print the card's name and
               power limit; TF32 off; build the four CUDA kernels from
@@ -114,15 +124,15 @@ printed:
               sim2real_loss and rsr_distribution_distance, the rates as in
               phase 4 and its checks (launches 2·S + 1, S + 1, S + 1, 0),
               a nonzero penalty in every minibatch; K1, K2 and K3 on the
-              last training substep's inputs (B 512) at every E; the SGD
-              check, with the gradient of sim2real_loss alone also held to
-              float64 and nonzero.
+              inputs of the control step after training (B 512) at every
+              E; the SGD check, with the gradient of sim2real_loss alone
+              also held to float64 and nonzero.
   6. go2      ``ppo.train`` with ``configs.ppo_config(
               'Go2JoystickFlatTerrain')`` (8192 envs, batch 256 x 32,
               unroll 20, 4 updates, 512-256-128 networks, the value network
               on ``privileged_state``) for one training step (163840
               env-steps): phase 4's rates and checks (launches S + 1 of K1
-              and K4), K1 and K4 on the last training substep's inputs, the
+              and K4), K1 and K4 on the control step after training, the
               SGD check on dict observations, the evaluator as in phase 4.
   7. tuning   ``rsr.pipeline.env_params_tuning`` on ``AirbotCubePush``
               with ``data_rsr_demo/``, the gradient through the physics
@@ -171,8 +181,9 @@ printed:
               size other than the actor steps give, on parameters or log α
               left unchanged, on target critics other than the τ update of
               the last step, on launch counts other than the substeps give
-              (see sac_checks).  The kernels of the last training substep
-              (K1, K2, K3 at B 1024 and 512; K1, K4 at B 4096) under phase
+              (see sac_checks).  The kernels of the control step after
+              training (K1, K2, K3 at B 1024 and 512; K1, K4 at B 4096)
+              under phase
               2's criteria at every E; the first SGD step replayed on the
               card and on the CPU in fp32 and float64 (sac_sgd_check; in
               the RSR run also the penalty's own gradient); one SGD step
@@ -262,6 +273,7 @@ printed:
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import math
 import os
@@ -336,6 +348,13 @@ KERNELS = {
     '_newton_lanes_core': (
         'K4', 'rsr_mjx_tpu_torch/csrc/newton_generic.cu',
         'rsr_mjx_tpu/physics/linalg_kernels.py:878'),
+}
+# the device kernels each wrapper launches, by their names in a trace
+DEVICE_KERNELS = {
+    'spd_solve_lanes': ('spd_solve_kernel', 'spd_solve_thread_kernel'),
+    'contact_select_lanes': ('contact_select_kernel',),
+    'newton_lanes_pyr_t': ('newton_pyr_kernel',),
+    '_newton_lanes_core': ('newton_generic_kernel',),
 }
 
 
@@ -531,9 +550,17 @@ def bound_ms(nbytes, flops):
 
 def record_calls(lk, fn, keep=None):
   """Run fn() with the kernel wrappers recording their arguments (of the
-  last ``keep`` calls of each wrapper; all calls by default)."""
+  last ``keep`` calls of each wrapper; all calls by default).  The physics
+  substeps run eagerly meanwhile, since a substep replayed from a CUDA
+  graph (``physics/graphed.py``) calls no wrapper: fn() is a short call
+  beside the path measured (a control step, ``record_last_step``), not the
+  path itself."""
   calls = {name: [] for name in KERNELS}
   real = {name: getattr(lk, name) for name in KERNELS}
+  graphed = sys.modules.get(lk.__name__.rpartition('.')[0] + '.graphed')
+  on_card = graphed and graphed._on_card
+  if graphed:
+    graphed._on_card = lambda d: False
 
   def recorder(name):
     def rec(*args):
@@ -550,7 +577,31 @@ def record_calls(lk, fn, keep=None):
   finally:
     for name, f in real.items():
       setattr(lk, name, f)
+    if graphed:
+      graphed._on_card = on_card
   return calls
+
+
+def last_step_args(fn, a, k, out):
+  """(env, the state it ended in, policy, generator, extra_fields) of a
+  call ``fn(*a, **k) -> out`` of ``acting.generate_unroll`` or
+  ``acting.actor_step``: the arguments of one more ``actor_step`` from
+  where it ended.  None for an evaluation's."""
+  if 'eval_metrics' in out[0].info:
+    return None
+  b = inspect.signature(fn).bind(*a, **k).arguments
+  return (b['env'], out[0], b['policy'], b['generator'],
+          b.get('extra_fields', ()))
+
+
+def record_last_step(lk, port, last, keep=2):
+  """record_calls of one eager control step (``acting.actor_step``) from
+  ``last`` (``last_step_args`` of the last training rollout): the kernels'
+  inputs at the training batch, where training replays graphs and calls
+  no wrapper."""
+  if last is None:
+    raise SystemExit('no training rollout was recorded')
+  return record_calls(lk, lambda: port.acting.actor_step(*last), keep=keep)
 
 
 def per_env_max(x):
@@ -1329,7 +1380,10 @@ STAGES = (
 def profile_control_step(torch, tag, env, policy, state, step_ms,
                          first=None):
   """One control step under torch.profiler: wall time, device busy time,
-  device kernels launched, and the host time of each stage.  The idle
+  device kernels launched, and the host time of each stage; fails unless
+  the K1-K4 kernels the trace holds, by name (DEVICE_KERNELS), are as many
+  as the launch counts say (inferred where the step replays a graph:
+  this is what holds them to the card).  The idle
   share divides the device busy time by ``step_ms``, the wall time of a
   control step without the profiler (the profiler slows the host, not the
   device); the share under the profiler is printed beside it.  The stage
@@ -1339,6 +1393,7 @@ def profile_control_step(torch, tag, env, policy, state, step_ms,
 
   from torch.profiler import ProfilerActivity, profile, record_function
 
+  lk = importlib.import_module('rsr_mjx_tpu_torch.physics.linalg_kernels')
   patched = []
   for mod_name, fn_name in STAGES:
     mod = importlib.import_module('rsr_mjx_tpu_torch.' + mod_name)
@@ -1352,6 +1407,7 @@ def profile_control_step(torch, tag, env, policy, state, step_ms,
     patched.append((mod, fn_name, real))
   try:
     torch.cuda.synchronize()
+    before = dict(lk.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
       t = time.perf_counter()
@@ -1363,11 +1419,22 @@ def profile_control_step(torch, tag, env, policy, state, step_ms,
       setattr(mod, fn_name, real)
   events = prof.key_averages()
   on_host = lambda e: e.device_type == torch.autograd.DeviceType.CPU
-  # device rows: the kernels, and each stage's span on the device timeline
-  # (an annotation, which is no device work of its own)
+  # device rows: the kernels, and each span on the device timeline (the
+  # stages' here, the port's tracing spans): an annotation, which is no
+  # device work of its own and may enclose the kernels of a whole step
+  spans = {e.name for e in prof.events()
+           if getattr(e, 'is_user_annotation', False)}
   kernels = [e for e in events
-             if not on_host(e) and not e.key.startswith('stage.')]
+             if not on_host(e) and not e.key.startswith('stage.')
+             and e.key not in spans]
   busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+  counted = {k: n - before[k] for k, n in lk.LAUNCHES.items()}
+  ran = {w: sum(e.count for e in kernels if any(n in e.key for n in names))
+         for w, names in DEVICE_KERNELS.items()}
+  log(f'{tag} profile: K1-K4 in the device trace {ran}, launch counts '
+      f'{counted} {"ok" if ran == counted else "FAIL"}')
+  if ran != counted:
+    raise SystemExit(f'{tag}: the card ran other kernels than counted')
   stages = {e.key[len('stage.'):]: e.cpu_time_total / 1e3 / e.count
             for e in events if on_host(e) and e.key.startswith('stage.')}
   if first in stages:
@@ -1643,9 +1710,10 @@ def run_training(torch, port, lk, train, make_net):
   at its boundaries, with no synchronise, so training/sps is the trainer's
   own; the first minibatch step's inputs recorded (``make_net()`` makes
   networks of the trained shape), the observations the rollouts produced
-  counted, the kernels' launch counts zeroed just before and the kernel
-  wrappers keeping the arguments of their last 2 calls.  Returns a
-  namespace: out (train()'s result), launches, calls, unroll_ms, sgd_ms,
+  counted, the kernels' launch counts zeroed just before; after it the
+  kernel wrappers' arguments of one eager control step from the state the
+  last rollout ended in (``record_last_step``).  Returns a namespace: out
+  (train()'s result), launches (of training alone), calls, unroll_ms, sgd_ms,
   step_metrics (per minibatch), rec, seen (observations), done and
   terminated (the rollouts' done flags, and those that were no time limit,
   summed on the card), progress (the steps progress_fn was called at),
@@ -1654,7 +1722,7 @@ def run_training(torch, port, lk, train, make_net):
 
   r = types.SimpleNamespace(rec={}, unroll_ev=[], sgd_ev=[], step_metrics=[],
                             progress=[], metrics=None, seen=0, done=0,
-                            terminated=0)
+                            terminated=0, last=None)
 
   def progress_fn(step, metrics):
     r.progress.append(step)
@@ -1672,6 +1740,7 @@ def run_training(torch, port, lk, train, make_net):
 
   def unroll(*a, **k):
     out = timed(r.unroll_ev, real_unroll, *a, **k)
+    r.last = last_step_args(real_unroll, a, k, out) or r.last
     data = out[1]
     r.seen += data.reward.numel()
     done = 1 - data.discount
@@ -1697,12 +1766,13 @@ def run_training(torch, port, lk, train, make_net):
   port.acting.generate_unroll, port.ppo.minibatch_step = unroll, step
   zero_launches(lk)
   try:
-    r.calls = record_calls(lk, lambda: out.append(train(progress_fn)),
-                           keep=2)
+    out.append(train(progress_fn))
   finally:
     port.acting.generate_unroll, port.ppo.minibatch_step = (real_unroll,
                                                             real_step)
   r.launches = dict(lk.LAUNCHES)
+  r.calls = record_last_step(lk, port, r.last)
+  del r.last
   r.out = out[0]
   torch.cuda.synchronize()
   r.unroll_ms = [a.elapsed_time(b) for a, b in r.unroll_ev]
@@ -1767,9 +1837,10 @@ GO2_TRAIN_LAUNCHES = lambda S: {
 
 
 def cube_kernel_rows(torch, lk, calls, B, tag):
-  """K1, K2 and K3 on the recorded inputs of the last training substep
-  (the batch of training, and so the envs per block it makes the wrappers
-  choose), under phase 2's checks; fails if one fails."""
+  """K1, K2 and K3 on the recorded inputs of the last substep of the
+  eager control step after training (``record_last_step``: the batch of
+  training, and so the envs per block it makes the wrappers choose), under
+  phase 2's checks; fails if one fails."""
   if calls['spd_solve_lanes'][-1][1].shape[-1] != B:
     raise SystemExit(f'{tag}: the recorded kernel inputs are not of '
                      'training')
@@ -1834,7 +1905,7 @@ def train_phase(torch, port, lk, card, name=ENV, tag='train',
   ``ppo.train`` with ``configs.ppo_config`` (1024 envs, batch 256 x 32
   minibatches, unroll 10, 8 updates per batch) for ``steps`` training steps
   in one epoch, no evaluation inside (run_training).  Then K1, K2 and K3 on
-  the recorded inputs of the last training substep (B 1024, E of the
+  the recorded inputs of the control step after training (B 1024, E of the
   training batch) against their plain versions, as phase 2 holds them, the
   card-vs-CPU SGD check on the first minibatch, and the evaluator.
   ``num_minibatches`` cuts the table's.  Returns the kernels' launches in
@@ -1938,7 +2009,8 @@ def go2_train_phase(torch, port, lk, card, name=GO2_ENV, tag='go2 train',
   envs, batch 256 x 32 minibatches, unroll 20, 4 updates, 512-256-128
   networks, the value network on ``privileged_state``) for GO2_TRAIN_STEPS
   training step(s) in one epoch, no evaluation inside (run_training).  Then
-  K1 and K4 on the recorded inputs of the last training substep against
+  K1 and K4 on the recorded inputs of the control step after training
+  against
   their plain versions, the card-vs-CPU SGD check on the first minibatch
   (dict observations) and the evaluator.  ``expect(S)`` gives the launch
   counts of S substeps (GO2_TRAIN_LAUNCHES by default), ``k4_check(tag,
@@ -2371,13 +2443,14 @@ def run_sac(torch, port, lk, train):
   the normalizer, the batch, the three draws, ``make_losses``' arguments);
   the target critics copied before every SGD step; the replay ring's
   bytes (``torch.cuda.memory_allocated`` around its allocation) and last
-  state; the kernels' launches zeroed just before and the wrappers keeping
-  the arguments of their last 2 calls.  Returns a namespace."""
+  state; the kernels' launches zeroed just before; after it the kernel
+  wrappers' arguments of one eager control step from the last training
+  actor step's state (``record_last_step``).  Returns a namespace."""
   import copy
   import types
 
   r = types.SimpleNamespace(actor_ev=[], sgd_ev=[], progress=[], metrics=None,
-                            rec=None, start=torch.cuda.Event(
+                            rec=None, last=None, start=torch.cuda.Event(
                                 enable_timing=True))
   sac, rb, losses_mod = port.sac, port.replay_buffer, port.sac_losses
   real = dict(actor=port.acting.actor_step, sgd=sac.sgd_step, init=rb.init,
@@ -2424,20 +2497,26 @@ def run_sac(torch, port, lk, train):
     r.buffer = real['insert'](state, batch)
     return r.buffer
 
-  port.acting.actor_step = lambda *a, **k: timed(r.actor_ev, real['actor'],
-                                                 *a, **k)
+  def actor(*a, **k):
+    out = timed(r.actor_ev, real['actor'], *a, **k)
+    r.last = last_step_args(real['actor'], a, k, out) or r.last
+    return out
+
+  port.acting.actor_step = actor
   sac.sgd_step, rb.init, rb.insert = sgd_step, init, insert
   losses_mod.make_losses = make_losses
   out = []
   zero_launches(lk)
   try:
     r.start.record()
-    r.calls = record_calls(lk, lambda: out.append(train(progress_fn)), keep=2)
+    out.append(train(progress_fn))
   finally:
     port.acting.actor_step, sac.sgd_step = real['actor'], real['sgd']
     rb.init, rb.insert = real['init'], real['insert']
     losses_mod.make_losses = real['losses']
   r.launches = dict(lk.LAUNCHES)
+  r.calls = record_last_step(lk, port, r.last)
+  del r.last
   r.out = out[0]
   torch.cuda.synchronize()
   r.actor_ms = [a.elapsed_time(b) for a, b in r.actor_ev]
@@ -2647,7 +2726,8 @@ def sac_phase(torch, port, lk, card):
   pipeline.policy_params_training(algorithm='sac')`` at the RSR CLI's SAC
   table, (c) ``sac.train`` on the Go2 joystick's 'state' entry
   (``SelectObservationWrapper``) at its SAC table.  Each: sac_checks, the
-  kernels of its last training substep under phase 2's criteria at every
+  kernels of the control step after training under phase 2's criteria at
+  every
   E, the SGD check, one SGD step under the profiler; (a) and (c) the
   evaluator.  Then the trained JAX SAC policy of logs/cube_sac_500k_r5
   served on cube-push.  Returns the kernels' launches over the phase."""
@@ -2947,7 +3027,8 @@ def dr_train_phase(torch, port, lk, card, name):
   training_checks; the terminated share of the rollouts (printed, not
   bounded: the Go2 masses move by up to 3 kg); K1, K2 (Fd 26: the per-env
   contact parameters ride with the dynamic features) and K3 (cube-push)
-  or K1 and K4 (Go2) on the last training substep's inputs at every E;
+  or K1 and K4 (Go2) on the inputs of the control step after training at
+  every E;
   then half the training envs driven to their time limit, one step: those
   restart from their first state, and every env keeps its own model.
   Returns the kernels' launches in training."""
@@ -3659,6 +3740,17 @@ def deploy_phase(torch, port, card):
                 's)', robot, steps, TPUSH_LOOP_STEPS)
 
 
+def same_bits(eager_q, q, tag) -> None:
+  """Fail unless a rollout's qpos on the main path (physics replayed from
+  CUDA graphs) equals its eager rollout's bit for bit."""
+  import numpy as np
+
+  same = eager_q.shape == q.shape and np.array_equal(eager_q, q)
+  log(f'{tag}: qpos equal to the eager rollout bit for bit: {same}')
+  if not same:
+    raise SystemExit(f'{tag}: the replayed rollout differs from the eager')
+
+
 def expect_launches(launches, expect) -> None:
   got = {k: v for k, v in launches.items() if v}
   if got != expect:
@@ -3711,9 +3803,12 @@ def render_phase(torch, port, lk, card):
   float64 (render_rollout_checks; the draws come from one CPU generator on
   every device, so the rollouts start and draw alike) over the steps
   before the CPU's own fp32 rollout parts from float64; the joystick's
-  commands equal.  The kernels of each rollout's last substep at B 1
-  under phase 2's criteria.  Rasterisation is not run: the card machine
-  has no mujoco.  Returns (rows, launches by row name)."""
+  commands equal.  Each rollout on the card runs twice: eagerly, with
+  the kernels' inputs recorded (those of its last substep at B 1, under
+  phase 2's criteria), then timed on the main path, its physics replayed
+  from CUDA graphs, with its qpos equal to the eager one bit for bit.
+  Rasterisation is not run: the card machine has no mujoco.  Returns
+  (rows, launches by row name)."""
   import numpy as np
 
   f32 = lambda obs: ({k: v.float() for k, v in obs.items()}
@@ -3730,11 +3825,14 @@ def render_phase(torch, port, lk, card):
     if dev != DEV:
       run()
       continue
+    calls = record_calls(lk, run, keep=2)
+    eager_q = q[dev, dtype]
     zero_launches(lk)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    calls = record_calls(lk, run, keep=2)
+    run()
     wall = time.perf_counter() - t
+    same_bits(eager_q, q[dev, dtype], 'render cube-push')
     cube = path_launches(lk, 'render cube-push', CUBE_PATH)
     # each substep launches K1 twice, K2 and K3 once; the reset's forward
     # each once
@@ -3742,7 +3840,8 @@ def render_phase(torch, port, lk, card):
     expect_launches(cube, {'spd_solve_lanes': 2 * S + 1,
                            'contact_select_lanes': S + 1,
                            'newton_lanes_pyr_t': S + 1})
-    log(f'render cube-push: {ENV} B 1, {RENDER_STEPS} control steps in '
+    log(f'render cube-push: {ENV} B 1, {RENDER_STEPS} control steps on the '
+        f'main path (its captures included) in '
         f'{wall:.3f} s: {wall / RENDER_STEPS * 1e3:.3f} ms a control step; '
         f'launches {cube}; card {card}')
   render_rollout_checks(torch, 'render cube-push', q[DEV, torch.float32],
@@ -3773,16 +3872,20 @@ def render_phase(torch, port, lk, card):
     if dev != DEV:
       run()
       continue
+    calls = record_calls(lk, run, keep=1)
+    eager_q = rec[dev, dtype][0]
     zero_launches(lk)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    calls = record_calls(lk, run, keep=1)
+    run()
     wall = time.perf_counter() - t
+    same_bits(eager_q, rec[dev, dtype][0], 'render Go2')
     go2 = path_launches(lk, 'render Go2', GO2_PATH)
     S = RENDER_STEPS * env0.n_substeps
     expect_launches(go2, {'spd_solve_lanes': S + 1,
                           '_newton_lanes_core': S + 1})
-    log(f'render Go2: {GO2_ENV} B 1, {RENDER_STEPS} control steps in '
+    log(f'render Go2: {GO2_ENV} B 1, {RENDER_STEPS} control steps on the '
+        f'main path (its captures included) in '
         f'{wall:.3f} s: {wall / RENDER_STEPS * 1e3:.3f} ms a control step; '
         f'launches {go2}; card {card}')
   (q_g, c_g, y_g), (q_c, c_c, y_c), (q_d, c_d, _) = (

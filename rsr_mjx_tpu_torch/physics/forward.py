@@ -7,7 +7,8 @@ integrates; ``forward`` runs the same chain without the implicit solve, for
 ``envs.core.init``.  Sensors are pure outputs, read from the state before
 integration and from the raw constrained acceleration; ``sensors=False``
 skips them (a control step of several substeps needs them on its last one
-only).
+only).  On a card ``step`` replays a CUDA graph of the substep
+(``graphed``).
 
 Precision: the JAX physics runs under matmul precision 'highest' (true
 fp32; bf16 matmuls corrupted its contact geometry).  The port keeps fp32
@@ -22,6 +23,7 @@ import torch
 from rsr_mjx_tpu_torch.physics import collision as _collision
 from rsr_mjx_tpu_torch.physics import constraint as _constraint
 from rsr_mjx_tpu_torch.physics import fwd_fused as _ff
+from rsr_mjx_tpu_torch.physics import graphed as _graphed
 from rsr_mjx_tpu_torch.physics import lie
 from rsr_mjx_tpu_torch.physics import sensors as _sensors
 from rsr_mjx_tpu_torch.physics.types import Contact, Data, JointType, Model
@@ -92,10 +94,18 @@ def _integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt):
 def step(m: Model, d: Data, sensors: bool = True) -> Data:
   """One physics step of every env in the batch: the fused forward chain
   and the implicit-damping solve, the sensors (unless ``sensors`` is
-  False), then semi-implicit Euler integration.  Span ``physics.step``
-  (the chain's stages nest in it), counter ``physics.substeps``."""
+  False), then semi-implicit Euler integration.  On a card it is replayed
+  from a CUDA graph of that same substep (``graphed``; its
+  ``eager_reason`` says where it is not).  Span ``physics.step`` and
+  counter ``physics.substeps`` around either; the stages' spans fire where
+  the substep runs eagerly or is captured."""
   tracing.count('physics.substeps')
   _fp32()
+  return _graphed.run(m, d, sensors, _step)
+
+
+def _step(m: Model, d: Data, sensors: bool) -> Data:
+  """The eager substep of ``step``."""
   d, qacc_i = _ff.forward_lanes(m, d, implicit=True)
   if sensors:
     with tracing.span('physics.sensors'):

@@ -80,7 +80,9 @@ def _chain(m: Model, kl, sl, lv, x0, h, implicit: bool, basis: bool,
   containment → implicit solve, all in lanes layout, each stage a span of
   ``utils.tracing`` (``physics.kinematics``, ``.smooth``, ``.assembly``:
   narrow phase and K2, ``.solve``: K3 or K4 and the containment,
-  ``.implicit``: the second K1).  ``kl``, ``sl``, ``lv`` are the stages'
+  ``.implicit``: the second K1).  On a card the spans fire only while
+  ``graphed`` captures a substep, and in ``forward``: a replay runs none of
+  this code.  ``kl``, ``sl``, ``lv`` are the stages'
   leaves (``sl`` and ``lv`` without the kinematics fields, which come from
   ``kl`` here), x0 (nv, B) the warm start, h the timestep.  ``grad``
   sends the generic-row solve through

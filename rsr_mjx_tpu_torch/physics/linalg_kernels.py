@@ -308,10 +308,11 @@ def spd_solve(At: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _slot_pair(pair_struct: tuple, device: torch.device) -> torch.Tensor:
   """Static slot → pair-row map (ncon,) int32 for ((P, k, off), ...), made
-  on ``device`` once."""
+  on ``device`` once and never freed: a substep replayed from a CUDA graph
+  (``physics/graphed.py``) reads it at its address."""
   out, base = [], 0
   for P, k, off in pair_struct:
     out.append(base + np.arange(P * k) // k)
@@ -496,10 +497,11 @@ def check_newton_pyr_fits(nv: int, Rs: int, C: int, naxes: int) -> None:
         f'{_SMEM_LIMIT}, nv <= 32)')
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _row_masks(kinds: tuple, device: torch.device, dtype: torch.dtype):
-  """Row masks (Rs,) of the static kinds on ``device``, made once: one-sided
-  rows (limits, contacts) and dof-friction rows."""
+  """Row masks (Rs,) of the static kinds on ``device``, made once and never
+  freed (as ``_slot_pair``): one-sided rows (limits, contacts) and
+  dof-friction rows."""
   kind_s = np.asarray(kinds)
   onesided = (kind_s == _LIMIT) | (kind_s == _CONTACT)
   fric = kind_s == _FRICTION

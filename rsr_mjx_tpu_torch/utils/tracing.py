@@ -25,11 +25,14 @@ place.  ``report()`` is the snapshot as text, one line a span or counter.
 Spans: ``env.step``, ``env.reset`` (``envs/wrappers.AutoResetWrapper``);
 ``physics.step`` and its stages ``physics.kinematics``, ``.smooth``,
 ``.assembly``, ``.solve``, ``.implicit`` (``physics/fwd_fused._chain``),
-``.sensors``, ``.integrate`` (``physics/forward.step``); ``policy.act``
+``.sensors``, ``.integrate`` (``physics/forward.step``), the stages on a
+card only while a substep is captured (``physics/graphed``); ``policy.act``
 (``train/networks.make_policy``); ``ppo.setup``, ``ppo.unroll``,
 ``ppo.minibatch_step``, ``ppo.normalizer_update`` (``train/ppo.py``,
 ``train/acting.py``); ``deploy.get_action``; ``kernels.build``.
-Counters: ``physics.substeps``, ``kernels.builds``, ``launches.*``.
+Counters: ``physics.substeps``, ``physics.graph_captures``,
+``physics.graph_replays`` (``physics/graphed``), ``kernels.builds``,
+``launches.*``.
 """
 
 from __future__ import annotations

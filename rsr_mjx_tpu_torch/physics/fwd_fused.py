@@ -79,8 +79,8 @@ def _chain(m: Model, kl, sl, lv, x0, h, implicit: bool, basis: bool,
   """kinematics → smooth dynamics → narrow phase → assembly → solve →
   containment → implicit solve, all in lanes layout, each stage a span of
   ``utils.tracing`` (``physics.kinematics``, ``.smooth``, ``.assembly``:
-  narrow phase and K2, ``.solve``: K3 or K4 and the containment,
-  ``.implicit``: the second K1).  On a card the spans fire only while
+  the narrow phase (``physics.collision``) and K2, ``.solve``: K3 or K4
+  and the containment, ``.implicit``: the second K1).  On a card the spans fire only while
   ``graphed`` captures a substep, and in ``forward``: a replay runs none of
   this code.  ``kl``, ``sl``, ``lv`` are the stages'
   leaves (``sl`` and ``lv`` without the kinematics fields, which come from

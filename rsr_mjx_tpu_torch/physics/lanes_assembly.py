@@ -32,6 +32,7 @@ from rsr_mjx_tpu_torch.physics import constraint as C
 from rsr_mjx_tpu_torch.physics import linalg_kernels as _lk
 from rsr_mjx_tpu_torch.physics import statics
 from rsr_mjx_tpu_torch.physics.types import EqType, Model
+from rsr_mjx_tpu_torch.utils import tracing
 
 _MJ_MINVAL = C._MJ_MINVAL
 
@@ -150,7 +151,8 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
   zero = torch.zeros((), dtype=dtype, device=dev)
   basis_out = ()
   if m.ncon:
-    dist_l, pos_l, frame_l = C.narrowphase_leaves(m, lv)
+    with tracing.span('physics.collision'):
+      dist_l, pos_l, frame_l = C.narrowphase_leaves(m, lv)
     dist_bm = dist_l.transpose(0, 1)  # (B, ncon)
     dmask_all = const('contact_dmask', lambda: C.contact_dmask(m),
                       dtype)  # (ncon, nv)

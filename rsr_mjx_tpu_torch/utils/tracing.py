@@ -25,8 +25,10 @@ place.  ``report()`` is the snapshot as text, one line a span or counter.
 Spans: ``env.step``, ``env.reset`` (``envs/wrappers.AutoResetWrapper``);
 ``physics.step`` and its stages ``physics.kinematics``, ``.smooth``,
 ``.assembly``, ``.solve``, ``.implicit`` (``physics/fwd_fused._chain``),
-``.sensors``, ``.integrate`` (``physics/forward.step``), the stages on a
-card only while a substep is captured (``physics/graphed``); ``policy.act``
+``.collision`` (the narrow phase, inside ``.assembly``:
+``physics/lanes_assembly``), ``.sensors``, ``.integrate``
+(``physics/forward.step``), the stages on a card only while a substep is
+captured (``physics/graphed``); ``policy.act``
 (``train/networks.make_policy``); ``ppo.setup``, ``ppo.unroll``,
 ``ppo.minibatch_step``, ``ppo.normalizer_update`` (``train/ppo.py``,
 ``train/acting.py``); ``deploy.get_action``; ``kernels.build``.

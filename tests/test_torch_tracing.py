@@ -1,9 +1,10 @@
 """The port's spans and counters (``rsr_mjx_tpu_torch.utils.tracing``) on
 the CPU: nesting and self time, the ring's medians with calls under the
 profiler left out, the span on the profiler's clock and off it,
-``linalg_kernels.LAUNCHES`` as the registry's counter group, and the
+``linalg_kernels.LAUNCHES`` as the registry's counter group, the
 spans of one training-stack control step of cube-push, of the served
-policy and of ``get_action``."""
+policy and of ``get_action``, and the narrow phase's span inside the
+assembly's."""
 
 import os
 import threading
@@ -183,3 +184,31 @@ def test_get_action_span_and_the_loop_log():
   logged = []
   control_loop.log_policy_time(logged.append)
   assert len(logged) == 1 and logged[0].startswith('deploy.get_action: calls 3')
+
+
+def test_collision_span_nests_in_assembly():
+  """On the full-collision scene: ``physics.collision`` (the narrow
+  phase) opens once a substep inside ``physics.assembly``, on the clock
+  and on the profiler's."""
+  from rsr_mjx_tpu_torch import envs, physics
+
+  env = envs.load('Go2Getup', device='cpu')
+  d = physics.make_data(env.model, 2)
+  qpos = torch.tensor(env.keyframe_qpos('home'), dtype=d.qpos.dtype)
+  d = d.replace(qpos=qpos.expand(2, -1).clone())
+  with torch.no_grad():
+    d = physics.step(env.model, d, sensors=False)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+      physics.step(env.model, d, sensors=False)
+  s = tracing.snapshot()['spans']
+  assert s['physics.collision']['calls'] == s['physics.assembly']['calls'] == 2
+  assert s['physics.assembly']['self_s'] == pytest.approx(
+      s['physics.assembly']['total_s'] - s['physics.collision']['total_s'])
+  ev = [e for e in prof.events() if e.name == 'physics.collision']
+  assert len(ev) == 1
+  parents, p = [], ev[0].cpu_parent
+  while p is not None:
+    parents.append(p.name)
+    p = p.cpu_parent
+  assert parents[:1] == ['physics.assembly'] and 'physics.step' in parents
+

@@ -1625,10 +1625,13 @@ def sim2real_grads(torch, port, rec, dev, dtype):
 
 def profile_sgd(torch, run, step_ms, tag='train') -> None:
   """One SGD step (``run()``, a recorded step replayed on the card) under
-  torch.profiler: device busy time, its share of ``step_ms`` (the measured
-  ms per step in training), device kernels launched."""
+  torch.profiler, after two unprofiled ones (a PPO step is captured into
+  a CUDA graph at its second call): device busy time, its share of
+  ``step_ms`` (the measured ms per step in training), device kernels
+  launched."""
   from torch.profiler import ProfilerActivity, profile
 
+  run()
   run()
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,

@@ -29,7 +29,8 @@ graph reads outlives it: the model's own (its group dies with the model),
 its ``statics`` tables (held by the model) and the kernels' row masks and
 slot maps (``linalg_kernels``, never evicted).
 
-Capture.  The first call of a key runs the eager substep on a side stream:
+Capture (``utils/cuda_graphs``' side stream, pools, capture and cache).
+The first call of a key runs the eager substep on a side stream:
 that is the call's answer, and it fills every lazy device table (the
 ``statics`` tables, the kernels' row masks and slot maps, the kernel
 libraries), so nothing is copied from the host or built inside the capture.
@@ -53,7 +54,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import weakref
 from typing import Callable, Optional
 
 import torch
@@ -61,6 +61,7 @@ import torch
 from rsr_mjx_tpu_torch.physics import fwd_fused as _ff
 from rsr_mjx_tpu_torch.physics.types import (DATA_FIELDS, OPT_STATIC_FIELDS,
                                              Data, Model)
+from rsr_mjx_tpu_torch.utils import cuda_graphs
 from rsr_mjx_tpu_torch.utils import tracing
 
 # the Data fields a substep reads: the graph's static inputs
@@ -77,8 +78,7 @@ for _k in ('graph_captures', 'graph_replays'):
 # the K1-K4 wrappers' launch counts (``linalg_kernels.LAUNCHES``)
 _LAUNCHES = tracing.group('launches')
 
-_CACHE: 'collections.OrderedDict[tuple, _Group]' = collections.OrderedDict()
-_SIDE_STREAMS: dict = {}
+_CACHE = cuda_graphs.Cache()  # {group key: _Group}
 
 
 def _on_card(d: Data) -> bool:
@@ -138,51 +138,11 @@ class _Group:
   """A model's graphs at one batch size: its weak reference, the pool
   they share and {graph key: _Graph}, least recently used first."""
 
-  def __init__(self, m: Model, key: tuple):
-    self.model = weakref.ref(m, lambda _, key=key: _drop(key))
-    self.pool = _new_pool()
+  def __init__(self):
+    self.model = None  # the model's weak reference (``Cache.add``)
+    self.pool = cuda_graphs.new_pool()
     self.graphs: 'collections.OrderedDict[tuple, _Graph]' = (
         collections.OrderedDict())
-
-
-def _drop(key: tuple) -> None:
-  _CACHE.pop(key, None)
-
-
-def _new_pool():
-  return torch.cuda.graph_pool_handle()
-
-
-def _side_stream(device):
-  s = _SIDE_STREAMS.get(device)
-  if s is None:
-    s = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
-  return s
-
-
-def _on_stream(stream, fn: Callable[[], Data]) -> Data:
-  """fn() run on ``stream``, ordered after the current stream's work and
-  before its later work."""
-  main = torch.cuda.current_stream(stream.device)
-  stream.wait_stream(main)
-  with torch.cuda.stream(stream):
-    out = fn()
-  main.wait_stream(stream)
-  return out
-
-
-def _capture(fn: Callable[[], Data], pool, stream):
-  """(graph, fn()'s outputs) of fn captured on ``stream`` into ``pool``.
-  Unlike ``torch.cuda.graph`` it neither collects garbage nor empties the
-  allocator's cache first: the pool takes what it needs."""
-  graph = torch.cuda.CUDAGraph()
-  with torch.cuda.stream(stream):
-    graph.capture_begin(pool=pool, capture_error_mode='thread_local')
-    try:
-      out = fn()
-    finally:
-      graph.capture_end()
-  return graph, out
 
 
 def _leaves(d: Data):
@@ -230,15 +190,15 @@ def _capture_graph(m: Model, d: Data, sensors: bool, eager, group: _Group):
   """The eager substep on a side stream (the call's answer, and the
   warm-up), then its capture on static inputs; (answer, _Graph)."""
   dev = _device_index(d)
-  side = _side_stream(d.qpos.device)
+  side = cuda_graphs.side_stream(d.qpos.device)
   with torch.cuda.device(dev):
-    answer = _on_stream(side, lambda: eager(m, d, sensors))
+    answer = cuda_graphs.on_stream(side, lambda: eager(m, d, sensors))
     with torch.no_grad():
       inputs = {f: torch.empty_like(getattr(d, f)) for f in INPUTS}
       static = d.replace(**inputs)
       before = dict(_LAUNCHES)
-      graph, out = _capture(lambda: eager(m, static, sensors), group.pool,
-                            side)
+      graph, out = cuda_graphs.capture(lambda: eager(m, static, sensors),
+                                       group.pool, side)
   launches = tuple((k, n - before.get(k, 0)) for k, n in _LAUNCHES.items()
                    if n != before.get(k, 0))
   _LAUNCHES.update(before)  # the capture launched nothing
@@ -268,9 +228,8 @@ def run(m: Model, d: Data, sensors: bool,
     if not _ff.supported(m):  # the eager step raises
       return eager(m, d, sensors)
     with torch.cuda.device(_device_index(d)):
-      group = _CACHE[gk] = _Group(m, gk)
-    while len(_CACHE) > MAX_GROUPS:
-      _CACHE.popitem(last=False)
+      group = _Group()
+    (group.model,) = _CACHE.add(gk, group, (m,), MAX_GROUPS)
   else:
     _CACHE.move_to_end(gk)
   key = graph_key(d, sensors)

@@ -48,6 +48,7 @@ from rsr_mjx_tpu_torch.envs.wrappers import tree_map
 from rsr_mjx_tpu_torch.train import acting
 from rsr_mjx_tpu_torch.train import checkpoint as _checkpoint
 from rsr_mjx_tpu_torch.train import distributed
+from rsr_mjx_tpu_torch.train import graphed_sgd
 from rsr_mjx_tpu_torch.train import losses as ppo_losses
 from rsr_mjx_tpu_torch.train import networks as ppo_networks
 from rsr_mjx_tpu_torch.train import running_statistics
@@ -81,26 +82,98 @@ def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
                           eps=1e-8)
 
 
+def _adam_state(optimizer: torch.optim.Adam, p: torch.Tensor) -> dict:
+  """p's Adam state in ``torch.optim.Adam``'s layout, with the step count
+  a float32 tensor on p's device (moved there if a host step made it)."""
+  st = optimizer.state[p]
+  if not st:
+    st['step'] = torch.zeros((), dtype=torch.float32, device=p.device)
+    st['exp_avg'] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    st['exp_avg_sq'] = torch.zeros_like(p,
+                                        memory_format=torch.preserve_format)
+  elif st['step'].device != p.device:
+    st['step'] = st['step'].to(p.device, torch.float32)
+  return st
+
+
+@torch.no_grad()
+def adam_step_(optimizer: torch.optim.Adam) -> None:
+  """One step of ``optax.adam`` on every parameter with a gradient: m ←
+  β1·m + (1 − β1)·g, v ← β2·v + (1 − β2)·g², p ← p − lr·m̂ / (√v̂ + eps)
+  with m̂ = m / (1 − β1ᵗ), v̂ = v / (1 − β2ᵗ).  The step count t and the
+  corrections 1 − βᵗ are device tensors, so no value is read on the host
+  and a CUDA graph can replay the step.  ``optimizer`` is a plain
+  ``torch.optim.Adam`` (``make_optimizer``), whose ``state_dict()`` saves
+  and loads as before."""
+  if type(optimizer) is not torch.optim.Adam or any(
+      g['weight_decay'] or g['amsgrad'] or g['maximize']
+      for g in optimizer.param_groups):
+    raise ValueError('adam_step_ takes a plain torch.optim.Adam '
+                     '(make_optimizer)')
+  for group in optimizer.param_groups:
+    params = [p for p in group['params'] if p.grad is not None]
+    if not params:
+      continue
+    beta1, beta2 = group['betas']
+    states = [_adam_state(optimizer, p) for p in params]
+    steps = [s['step'] for s in states]
+    mu = [s['exp_avg'] for s in states]
+    nu = [s['exp_avg_sq'] for s in states]
+    grads = [p.grad for p in params]
+    torch._foreach_add_(steps, 1)
+    torch._foreach_mul_(mu, beta1)
+    torch._foreach_add_(mu, grads, alpha=1 - beta1)
+    torch._foreach_mul_(nu, beta2)
+    torch._foreach_addcmul_(nu, grads, grads, 1 - beta2)
+    mu_hat = torch._foreach_div(mu, _one_minus_pow(beta1, steps))
+    nu_hat = torch._foreach_div(nu, _one_minus_pow(beta2, steps))
+    torch._foreach_sqrt_(nu_hat)
+    torch._foreach_add_(nu_hat, group['eps'])
+    torch._foreach_div_(mu_hat, nu_hat)
+    torch._foreach_add_(params, mu_hat, alpha=-group['lr'])
+
+
+def _one_minus_pow(beta: float, steps):
+  """1 − βᵗ of each step count t, as −expm1(t·log β) in float32: within
+  a few ulp of its float64 value, which ``torch.optim.Adam`` takes on the
+  host.  (optax's float32 1 − βᵗ carries β's own rounding: 0.999 is
+  0.99900001 in float32, 1.3e-5 of 1 − β at t = 1.)"""
+  out = torch._foreach_mul(steps, math.log(beta))
+  torch._foreach_expm1_(out)
+  torch._foreach_neg_(out)
+  return out
+
+
+def _minibatch_step(networks, optimizer, normalizer_params, data,
+                    entropy_noise, loss_kwargs, max_grad_norm):
+  """``minibatch_step``'s eager body."""
+  optimizer.zero_grad(set_to_none=True)
+  with torch.enable_grad():
+    loss, metrics = ppo_losses.compute_ppo_loss(
+        networks, normalizer_params, data, entropy_noise, **loss_kwargs)
+    loss.backward()
+  distributed.mean_grads_([p.grad for p in networks.parameters()])
+  if max_grad_norm is not None:
+    with torch.no_grad():
+      clip_by_global_norm_([p.grad for p in networks.parameters()],
+                           max_grad_norm)
+  adam_step_(optimizer)
+  return metrics
+
+
 def minibatch_step(networks, optimizer, normalizer_params, data,
                    entropy_noise, loss_kwargs, max_grad_norm):
   """One SGD step on a [B, T] minibatch: the PPO loss and its gradient,
-  its mean over the processes (``distributed``), the clip, one Adam step.
-  Returns the loss metrics; the clipped gradients stay in each
-  parameter's ``.grad``.  Span ``ppo.minibatch_step``: the host's time,
-  the device's work not waited for."""
+  its mean over the processes (``distributed``), the clip, one Adam step
+  (``adam_step_``); on a card replayed from a CUDA graph
+  (``graphed_sgd``).  Returns the
+  loss metrics; the clipped gradients stay in each parameter's ``.grad``.
+  Span ``ppo.minibatch_step``: the host's time, the device's work not
+  waited for."""
   with tracing.span('ppo.minibatch_step'):
-    optimizer.zero_grad(set_to_none=True)
-    with torch.enable_grad():
-      loss, metrics = ppo_losses.compute_ppo_loss(
-          networks, normalizer_params, data, entropy_noise, **loss_kwargs)
-      loss.backward()
-    distributed.mean_grads_([p.grad for p in networks.parameters()])
-    if max_grad_norm is not None:
-      with torch.no_grad():
-        clip_by_global_norm_([p.grad for p in networks.parameters()],
-                             max_grad_norm)
-    optimizer.step()
-    return metrics
+    return graphed_sgd.run(_minibatch_step, networks, optimizer,
+                           normalizer_params, data, entropy_noise,
+                           loss_kwargs, max_grad_norm)
 
 
 def permutation(n: int, generator: torch.Generator) -> torch.Tensor:

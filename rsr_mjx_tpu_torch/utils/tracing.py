@@ -33,8 +33,11 @@ captured (``physics/graphed``); ``policy.act``
 ``ppo.minibatch_step``, ``ppo.normalizer_update`` (``train/ppo.py``,
 ``train/acting.py``); ``deploy.get_action``; ``kernels.build``.
 Counters: ``physics.substeps``, ``physics.graph_captures``,
-``physics.graph_replays`` (``physics/graphed``), ``kernels.builds``,
-``launches.*``.
+``physics.graph_replays`` (``physics/graphed``),
+``ppo.sgd_graph_captures``, ``ppo.sgd_graph_replays``
+(``train/graphed_sgd``: minibatch steps captured and replayed; the
+benchmark's ``sgd_graph_share.train`` is the replays over the calls of
+``ppo.minibatch_step``), ``kernels.builds``, ``launches.*``.
 """
 
 from __future__ import annotations

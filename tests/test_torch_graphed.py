@@ -34,6 +34,7 @@ from rsr_mjx_tpu_torch.envs import wrappers
 from rsr_mjx_tpu_torch.physics import graphed
 from rsr_mjx_tpu_torch.physics import linalg_kernels as lk
 from rsr_mjx_tpu_torch.physics.types import IntegratorType
+from rsr_mjx_tpu_torch.utils import cuda_graphs
 from rsr_mjx_tpu_torch.utils import tracing
 
 forward = importlib.import_module('rsr_mjx_tpu_torch.physics.forward')
@@ -63,12 +64,13 @@ def _rerun_capture(fn, pool, stream):
 
 @pytest.fixture
 def emulated(monkeypatch):
-  """graphed's CUDA calls replaced by their CPU stand-ins."""
+  """The CUDA calls of graphed (``utils/cuda_graphs``) replaced by their
+  CPU stand-ins."""
   monkeypatch.setattr(graphed, '_on_card', lambda d: True)
-  monkeypatch.setattr(graphed, '_new_pool', lambda: None)
-  monkeypatch.setattr(graphed, '_side_stream', lambda device: None)
-  monkeypatch.setattr(graphed, '_on_stream', lambda stream, fn: fn())
-  monkeypatch.setattr(graphed, '_capture', _rerun_capture)
+  monkeypatch.setattr(cuda_graphs, 'new_pool', lambda: None)
+  monkeypatch.setattr(cuda_graphs, 'side_stream', lambda device: None)
+  monkeypatch.setattr(cuda_graphs, 'on_stream', lambda stream, fn: fn())
+  monkeypatch.setattr(cuda_graphs, 'capture', _rerun_capture)
   graphed.clear()
   yield
   graphed.clear()
@@ -323,7 +325,7 @@ def test_kernel_tables_never_evicted(table):
 def test_group_dies_with_its_model(emulated, monkeypatch):
   """The cache holds its model weakly (here with a stand-in that keeps
   no function, as a CUDA graph keeps none)."""
-  monkeypatch.setattr(graphed, '_capture',
+  monkeypatch.setattr(cuda_graphs, 'capture',
                       lambda fn, pool, stream: (object(), fn()))
   env, st = _state(CUBE)
   m = env.model.replace(

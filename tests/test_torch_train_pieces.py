@@ -325,10 +325,13 @@ def test_mlp_init_is_lecun_uniform():
   assert (before['value.layers.0.bias'] != 0).any()  # nn.Linear's own init
 
 
+@pytest.mark.parametrize('update', ['torch_step', 'adam_step_'])
 @pytest.mark.parametrize('grad_scale', [0.01, 10.0])
-def test_clip_and_adam_match_optax(grad_scale):
+def test_clip_and_adam_match_optax(grad_scale, update):
   """Three steps on the same gradients; at scale 10 the global norm is
-  above 1 and the clip acts, at 0.01 it does not."""
+  above 1 and the clip acts, at 0.01 it does not.  The update is
+  ``torch.optim.Adam.step()`` (SAC, the tuning loop) or ``ppo.adam_step_``
+  (PPO's minibatch step, eager and replayed from a CUDA graph)."""
   rng = np.random.default_rng(4)
   params = {'a': f32(rng, 4, 3), 'b': f32(rng, 3)}
   grads = [{k: f32(rng, *v.shape, scale=grad_scale) for k, v in
@@ -348,7 +351,7 @@ def test_clip_and_adam_match_optax(grad_scale):
     for k, p in tp.items():
       np.testing.assert_allclose(p.grad.numpy(), np.asarray(clipped[k]),
                                  rtol=1e-6, atol=1e-9)
-    topt.step()
+    topt.step() if update == 'torch_step' else pppo.adam_step_(topt)
     for k, p in tp.items():
       np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
                                  rtol=1e-6, atol=1e-9)

@@ -26,19 +26,17 @@ PPO on Go2 getup (K1, K4 at 366 rows).  One
 tunes the
 cube's friction through ``rsr.pipeline.env_params_tuning`` with gradients
 through the step (K1, K2, K3 forward; K1, K2, K4 in the recomputation and
-the backward).  And the port's command-line programs: the benchmark
-(``python -m rsr_mjx_tpu_torch.bench``) on cube-push and the Go2
-joystick, the evaluation CLIs (``train.eval_policy``, ``train.eval_go2``)
-on cube-push and getup, and PPO and SAC training in a ``torch.distributed``
-group of one.  And deployment and its neighbours: ``deploy.PolicyInference``
-serving the PPO and SAC checkpoints on the card, the cube-push and T-push
-control loops against stub arms, the rollouts behind ``--render`` and
-``--video`` at one env (cube-push: K1, K2, K3; the Go2 joystick: K1, K4, a
-batch no other path sends to the kernels) and the scaling sweep
-(``python -m rsr_mjx_tpu_torch.bench_scaling``).  Rasterising those
-rollouts into frames needs ``mujoco`` and a GL context, which the card
-machine lacks: phase 12 checks the qpos that would be rendered, not
-frames.
+the backward).  And the port's command-line programs: the evaluation CLIs
+(``train.eval_policy``, ``train.eval_go2``) on cube-push and getup, and PPO
+and SAC training in a ``torch.distributed`` group of one.  And deployment and
+its neighbours: ``deploy.PolicyInference`` serving the PPO and SAC
+checkpoints on the card, the cube-push and T-push control loops against stub
+arms, the rollouts behind ``--render`` and ``--video`` at one env
+(cube-push: K1, K2, K3; the Go2 joystick: K1, K4, a batch no other path
+sends to the kernels) and the scaling sweep (``python -m
+rsr_mjx_tpu_torch.bench_scaling``).  Rasterising those rollouts into frames
+needs ``mujoco`` and a GL context, which the card machine lacks: phase 12
+checks the qpos that would be rendered, not frames.
 
 On the card every physics substep outside the tuning gradient is replayed
 from a CUDA graph (``physics/graphed.py``), and a replay calls no kernel
@@ -231,15 +229,11 @@ Phases; any failure exits non-zero before the result line is printed:
               step of getup at its table (8192 envs; launches S + 126 of K1
               and K4, the settle included) with phase 6's checks, K4 held
               as check_k4_full holds it, and the evaluator.
- 11. cli      (a) ``bench.main`` on ``AirbotCubePush`` at B 2048 (K1, K2,
-              K3) and on the Go2 joystick at B 8192 (K1, K4), each a
-              warm-up rollout of 5 random-action control steps and 2 timed
-              (BENCH_CUT; full length 50 x 3), its JSON line printed with a
-              finite rate; (b) ``eval_policy.main`` on logs/cube_ppo_15M_r4
-              and ``eval_go2.main`` on getup (logs/go2_getup_5M_r5), 128
+ 11. cli      (a) ``eval_policy.main`` on logs/cube_ppo_15M_r4 and
+              ``eval_go2.main`` on getup (logs/go2_getup_5M_r5), 128
               episodes x 10 control steps each, the summaries printed and
               finite (cli_phase); each run's launches counted from zero,
-              only its path's kernels launched; (c) one PPO and one SAC
+              only its path's kernels launched; (b) one PPO and one SAC
               run on cube-push at 256 envs (world1_phase) with no process
               group and in an NCCL group of one started here: the trained
               parameters and the normalizer the same bits.  Groups of more
@@ -281,10 +275,12 @@ import subprocess
 import sys
 import time
 
+from benchmark.roofline import K1, K2, K3, K4, peaks
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PARAMS = os.path.join(ROOT, 'logs', 'cube_ppo_15M_r4', 'final_params.pkl')
 ENV = 'AirbotCubePushTrain'
-ENVS = 2048  # bench.py's per-chip batch
+ENVS = 2048  # the cube_push.rollout cell's batch
 # control steps of the cube-push (and T-push) rollout, 4 substeps each; cut
 # from 20 to 10 once phase 9 came, to keep the script within 12 minutes
 STEPS = 10
@@ -328,11 +324,6 @@ SHORT_MINIBATCHES = 8
 RSR_SIZES = dict(num_envs=512, batch_size=128, unroll_length=10,
                  num_minibatches=SHORT_MINIBATCHES, num_updates_per_batch=8)
 GO2_TRAIN_STEPS = 1  # Go2 PPO training steps (163840 env-steps at 8192)
-
-# Published peaks of one H100 SXM (NVIDIA data sheet, at the full 700 W
-# limit): device-memory bytes/s and float32 FLOP/s outside the tensor cores.
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
 
 KERNELS = {
     # wrapper name: (short name, source, TPU kernel it replaces)
@@ -479,70 +470,48 @@ def e_sweep(torch, lk, tag, fn, kernel_name: str) -> None:
       + ', '.join(f'E {E} {t:.5f}' for E, t in times.items()))
 
 
-# -- the least work of each kernel, from its inputs ------------------------
+# -- the least time of each kernel: benchmark/roofline at a call's shape ---
+
+ROOFLINE = {'K1': K1, 'K2': K2, 'K3': K3, 'K4': K4}
 
 
-def k1_work(At, bt):
-  n, B = bt.shape
-  # x depends on the triangle A[a][b >= a] alone: n(n+1)/2 entries of A
-  nbytes = 4 * (n * (n + 1) // 2 * B + 2 * n * B)
-  # Cholesky n³/3 multiply-adds, two triangular solves n² each, n roots
-  flops = B * (2 * n**3 / 3 + 2 * n * n + n)
-  return nbytes, flops
+def call_shape(name, args):
+  """(K1 ... K4, the ``shape`` that kernel's ``benchmark/roofline`` module
+  takes, the batch B) of one call of the kernel wrapper ``name`` with
+  ``args``, as ``record_calls`` keeps them."""
+  if name == 'spd_solve_lanes':
+    n, B = args[1].shape
+    return 'K1', {'n': n}, B
+  if name == 'contact_select_lanes':
+    _, nsel, _, feat_dyn, ptab = args
+    ncon, Fd, B = feat_dyn.shape
+    Ptot, nst = ptab.shape
+    return 'K2', {'ncon': ncon, 'nsel': nsel, 'Fd': Fd, 'Ptot': Ptot,
+                  'nst': nst}, B
+  if name == 'newton_lanes_pyr_t':
+    nv, Rs, B = args[6].shape
+    return 'K3', {'iters': args[0], 'ls_iters': args[1], 'nv': nv, 'Rs': Rs,
+                  'NU': args[10].shape[1], 'C': args[12].shape[0],
+                  'naxes': args[13]}, B
+  if name == '_newton_lanes_core':
+    nv, R, B = args[6].shape
+    return 'K4', {'iters': args[1], 'ls_iters': args[2], 'nv': nv,
+                  'R': R}, B
+  raise ValueError(f'no kernel wrapper {name}')
 
 
-def k2_work(pair_struct, nsel, dist_l, feat_dyn, ptab):
-  ncon, Fd, B = feat_dyn.shape
-  Ptot, nst = ptab.shape
-  # every dist read once; only the selected slots' features are needed;
-  # the rows and the picked slots written
-  nbytes = 4 * (ncon * B + nsel * Fd * B + Ptot * nst + ncon
-                + nsel * (Fd + nst) * B + nsel * B)
-  flops = ncon * B  # each dist compared at least once
-  return nbytes, flops
+def kernel_work(name, args):
+  """(bytes, FLOPs) of that call."""
+  short, shape, B = call_shape(name, args)
+  return ROOFLINE[short].work(shape, B)
 
 
-def k3_work(iters, ls_iters, kind_s, Mt, a0t, x0t, Js, arefs, Ds, fls, U,
-            arefU, Dc, naxes):
-  nv, Rs, B = Js.shape
-  NU, C = U.shape[1], Dc.shape[0]
-  nc = 2 * naxes * C  # contact pyramid rows
-  ins = (nv * nv + 2 * nv + nv * Rs + 3 * Rs + nv * NU + NU + C) * B + 2 * Rs
-  outs = (nv + Rs + nc + nv) * B
-  mv = 2 * nv * (nv + Rs + NU)  # one product with M, J and U
-  per_iter = (
-      2 * (nv * (nv + 1) // 2) * (Rs + NU)  # Hessian lower triangle
-      + nv * Rs + 2 * nv * C * (1 + 2 * naxes)  # J·diag(c) and W = U·S
-      + mv  # gradient
-      + 2 * nv**3 / 3 + 2 * nv * nv  # Cholesky and solves
-      + mv  # M dx, J dx, U dx
-      + ls_iters * 8 * (Rs + nc)  # line search
-      + 12 * (Rs + nc)  # accept test
-  )
-  flops = B * (mv + iters * per_iter + mv)
-  return 4 * (ins + outs), flops
-
-
-def k4_work(kind, iters, ls_iters, Mt, a0t, x0t, Jt, areft, Dt, flt):
-  nv, R, B = Jt.shape
-  ins = (nv * nv + 2 * nv + nv * R + 3 * R) * B + 2 * R
-  outs = (nv + R + nv) * B
-  mv = 2 * nv * (nv + R)  # one product with M and J
-  per_iter = (
-      2 * (nv * (nv + 1) // 2) * R + nv * R  # Hessian triangle, J·diag(c)
-      + mv  # gradient
-      + 2 * nv**3 / 3 + 2 * nv * nv  # Cholesky and solves
-      + mv  # M dx, J dx
-      + ls_iters * 8 * R  # line search
-      + 12 * R  # accept test
-  )
-  flops = B * (2 * nv * R + iters * per_iter + 2 * nv * R)
-  return 4 * (ins + outs), flops
-
-
-def bound_ms(nbytes, flops):
-  t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
-  return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+def least_ms(nbytes, flops):
+  """(the least time in ms of a call of that work, the term that sets it:
+  'bytes' or 'operations')."""
+  by_bytes = nbytes / peaks.HBM_BYTES_S >= flops / peaks.FP32_FLOP_S
+  return (peaks.bound_s(nbytes, flops) * 1e3,
+          'bytes' if by_bytes else 'operations')
 
 
 # -- phases ------------------------------------------------------------------
@@ -760,7 +729,7 @@ def k1_row(torch, lk, tag, systems):
       ratios=f'kernel {max(ratios[0::4]):.3g}, kernel backward '
              f'{max(ratios[1::4]):.3g}, plain backward '
              f'{max(ratios[2::4]):.3g}, plain vs f64 {max(ratios[3::4]):.3g}',
-      work=k1_work(At, bt),
+      work=kernel_work('spd_solve_lanes', (At, bt)),
       ms=time_ms(torch, run, 50),
       profiler_ms=profiler_ms(torch, run, 50, 'spd_solve_'),
       plain_ms=time_ms(torch, lambda: lk.spd_solve_plain(At, bt), 10),
@@ -889,7 +858,7 @@ def k2_row(torch, lk, args, tag='cube-push'):
   n_tied = int((tied[:-1] == tied[1:]).sum().item())
   return dict(
       max_abs_err=err, ok=err == 0.0, ratios='exact',
-      work=k2_work(*args),
+      work=kernel_work('contact_select_lanes', args),
       ms=time_ms(torch, run, 50),
       profiler_ms=profiler_ms(torch, run, 50, name),
       plain_ms=time_ms(torch, lambda: lk.contact_select_plain(*args), 10),
@@ -1026,7 +995,7 @@ def k4_row(torch, lk, tag, args, schedules):
       profiler_ms=profiler_ms(torch, run, 50, 'newton_generic_kernel'),
       ok=kernel_ok(ratios) and ragged_ok,
       ratios=fmt_ratios(ratios) + ('' if ragged_ok else ' (ragged FAIL)'),
-      work=k4_work(*args),
+      work=kernel_work('_newton_lanes_core', args),
       ms=time_ms(torch, run, 50),
       plain_ms=time_ms(torch, lambda: lk.newton_generic_plain(*args), 5, 1),
       library_ms=None,
@@ -1086,7 +1055,7 @@ def check_k4(torch, lk, go2_args, cube_args, cube_k3_args):
                           20, 'newton_generic_kernel')
   cube_plain = time_ms(
       torch, lambda: lk.newton_generic_plain(*cube_args), 5, 1)
-  cube_bound = bound_ms(*k4_work(*cube_args))
+  cube_bound = least_ms(*kernel_work('_newton_lanes_core', cube_args))
   log(f'K4 on the cube-push generic rows, 6 x 6: kernel_ms {cube_ms:.5f} '
       f'(profiler {cube_prof:.5f}) plain_ms {cube_plain:.5f} bound_ms '
       f'{cube_bound[0]:.5f} ({cube_bound[1]})')
@@ -1284,7 +1253,7 @@ def k3_row(torch, lk, tag, args):
       max_abs_err=err,
       ok=kernel_worst(ratios) <= 1.0 and ragged_ok and e_ok,
       ratios=fmt_all(ratios),
-      work=k3_work(*args),
+      work=kernel_work('newton_lanes_pyr_t', args),
       ms=time_ms(torch, lambda: lk.newton_lanes_pyr_t(*args), 20),
       plain_ms=time_ms(torch, lambda: lk.newton_pyr_plain(*args), 3, 1),
       library_ms=None,
@@ -1303,7 +1272,7 @@ def report(rows):
   failed = []
   for name, r in rows.items():
     short = KERNELS[name][0] + ' ' if name in KERNELS else ''
-    r['bound_ms'], r['bound_by'] = bound_ms(*r['work'])
+    r['bound_ms'], r['bound_by'] = least_ms(*r['work'])
     log(f'{short}{name}: max |kernel - plain| {r["max_abs_err"]:.3e}; '
         f'{r["note"]}; worst error/tolerance over envs: {r["ratios"]} '
         f'{"ok" if r["ok"] else "FAIL"}; kernel_ms {r["ms"]:.5f} '
@@ -3271,7 +3240,8 @@ def check_k4_full(torch, lk, tag, args):
                  args[1], args[2], name)
   return dict(
       max_abs_err=err, profiler_ms=profiler_ms(torch, run, 50, name), ok=ok,
-      ratios=fmt_ratios(ratios), work=k4_work(*args),
+      ratios=fmt_ratios(ratios),
+      work=kernel_work('_newton_lanes_core', args),
       ms=time_ms(torch, run, 50),
       plain_ms=time_ms(torch, lambda: lk.newton_generic_plain(*args), 5, 1),
       library_ms=None,
@@ -3396,10 +3366,7 @@ def go2_tasks_phase(torch, port, lk, card):
 
 
 
-# -- phase 11: the benchmark script, the evaluation CLIs, a group of one
-# the bench's length here: a warm-up rollout of 5 control steps and 2 timed
-# (full length 50 x 3: PERF.md section 5)
-BENCH_CUT = ['--steps', '5', '--reps', '2']
+# -- phase 11: the evaluation CLIs, a group of one
 # control steps of each evaluation (full: 1200, 500); cut from 25 to 10
 # once phase 12 came, to keep the script within 12 minutes
 EVAL_CLI_STEPS = 10
@@ -3421,10 +3388,10 @@ WORLD1_SAC = dict(num_timesteps=2 * WORLD1_ENVS, num_envs=WORLD1_ENVS,
 
 
 def import_cli(port):
-  """Add the benchmark, the evaluation CLIs and the trainers' process-group
-  helpers to ``port`` (phase 11)."""
+  """Add the evaluation CLIs and the trainers' process-group helpers to
+  ``port`` (phase 11)."""
   mod = _port_module
-  port.bench, port.distributed = mod('bench'), mod('train.distributed')
+  port.distributed = mod('train.distributed')
   port.eval_policy, port.eval_go2 = (mod('train.eval_policy'),
                                      mod('train.eval_go2'))
   port.sac, port.sac_networks = mod('train.sac'), mod('train.sac_networks')
@@ -3440,39 +3407,25 @@ def path_launches(lk, tag, kernels):
 
 
 def cli_phase(torch, lk, port, card):
-  """Phase 11 (a), (b): ``bench.main`` on cube-push (B 2048, K1 K2 K3) and
-  the Go2 joystick (B 8192, K1 K4) at BENCH_CUT, each line's rate finite;
-  ``eval_policy.main`` on the cube-push checkpoint and ``eval_go2.main``
-  on getup, 128 episodes x EVAL_CLI_STEPS control steps each, their
-  summaries finite.  Each run's launches counted from zero.  Returns
-  (the sum of the launches of the first three, getup's: K1 and K4 at the
-  full scene's R0 366)."""
-  total = {}
+  """Phase 11 (a): ``eval_policy.main`` on the cube-push checkpoint and
+  ``eval_go2.main`` on getup, 128 episodes x EVAL_CLI_STEPS control steps
+  each, their summaries finite.  Each run's launches counted from zero.
+  Returns (eval_policy's launches, getup's: K1 and K4 at the full scene's
+  R0 366)."""
 
   def add(tag, kernels, t):
     launches = path_launches(lk, tag, kernels)
-    for k, v in launches.items():
-      total[k] = total.get(k, 0) + v
     log(f'{tag}: {time.perf_counter() - t:.1f} s; launches {launches}; '
         f'card {card}')
     return launches
-
-  for argv, kernels in (
-      (['--env', 'AirbotCubePush', '--num_envs', str(ENVS)], CUBE_PATH),
-      (['--env', GO2_ENV, '--num_envs', str(GO2_ENVS)], GO2_PATH)):
-    zero_launches(lk)
-    t = time.perf_counter()
-    line = port.bench.main(argv + BENCH_CUT + ['--device', DEV])
-    if not (math.isfinite(line['value']) and line['value'] > 0):
-      raise SystemExit(f'bench: no finite rate in {line}')
-    add(f'bench {line["metric"]}', kernels, t)
 
   zero_launches(lk)
   t = time.perf_counter()
   s = port.eval_policy.main([PARAMS, '--episodes', str(EVAL_ENVS),
                              '--episode_length', str(EVAL_CLI_STEPS),
                              '--device', DEV])
-  add(f'eval_policy {ENV} {EVAL_ENVS} x {EVAL_CLI_STEPS}', CUBE_PATH, t)
+  main = add(f'eval_policy {ENV} {EVAL_ENVS} x {EVAL_CLI_STEPS}', CUBE_PATH,
+             t)
   check_finite(torch, [(k, torch.as_tensor(s[k]), (EVAL_ENVS,))
                        for k in ('ep_rew', 'min_dist')])
   zero_launches(lk)
@@ -3480,7 +3433,6 @@ def cli_phase(torch, lk, port, card):
   s = port.eval_go2.main([GETUP_PARAMS, '--env', GETUP_ENV, '--episodes',
                           str(EVAL_ENVS), '--episode_length',
                           str(EVAL_CLI_STEPS), '--device', DEV])
-  main = dict(total)
   getup = add(f'eval_go2 {GETUP_ENV} {EVAL_ENVS} x {EVAL_CLI_STEPS}',
               GO2_PATH, t)
   check_finite(torch, [('ep_rew', torch.as_tensor(s['ep_rew']),
@@ -3531,7 +3483,7 @@ def world1_train(torch, port, algo, group):
 
 
 def world1_phase(torch, lk, port, card):
-  """Phase 11 (c): one PPO and one SAC run (WORLD1_*) with no process
+  """Phase 11 (b): one PPO and one SAC run (WORLD1_*) with no process
   group, then the same in an NCCL group of one started here (TCPStore on
   localhost), which sends every gradient, the normalizer's sums and the
   metrics through all-reduces and each env's draws through a
@@ -3953,7 +3905,7 @@ def wrapper_times(torch, port, card) -> None:
   gen = torch.Generator(device=DEV).manual_seed(SEED)
 
   def line(tag, fn, kernel_name, work):
-    bound = bound_ms(*work)[0]
+    bound = least_ms(*work)[0]
     events = time_ms(torch, fn, 50)
     device = profiler_ms(torch, fn, 50, kernel_name)
     log(f'{tag}: kernel_ms {events:.5f} (profiler {device:.5f}) bound_ms '
@@ -3967,11 +3919,12 @@ def wrapper_times(torch, port, card) -> None:
     calls = record_calls(lk, lambda: env.step(state, policy(state.obs)))
     At, bt = calls['spd_solve_lanes'][-1][:2]
     line(f'K1 {tag}, n {bt.shape[0]}, B {bt.shape[1]}',
-         lambda: lk.spd_solve_lanes(At, bt), 'spd_solve_', k1_work(At, bt))
+         lambda: lk.spd_solve_lanes(At, bt), 'spd_solve_',
+         kernel_work('spd_solve_lanes', (At, bt)))
     for a in calls['contact_select_lanes'][-1:]:
       line(f'K2 {tag}, {a[2].shape[0]} -> {a[1]} slots, B {a[2].shape[1]}',
            lambda: lk.contact_select_lanes(*a), 'contact_select_kernel',
-           k2_work(*a))
+           kernel_work('contact_select_lanes', a))
     del calls, env, policy, state
 
 
@@ -4168,7 +4121,7 @@ def main() -> int:
       torch, port, lk, card)
   phase_done(10)
 
-  # -- 11. the benchmark script, the evaluation CLIs, a group of one
+  # -- 11. the evaluation CLIs, a group of one
   import_cli(port)
   cli_launches, getup_eval = cli_phase(torch, lk, port, card)
   w1_launches = world1_phase(torch, lk, port, card)

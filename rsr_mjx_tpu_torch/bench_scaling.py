@@ -22,7 +22,7 @@ env i draws what it would draw alone) and the others wait.
 ``--spawn_two_process`` starts two gloo processes on the CPU and sweeps
 both (the check of the several-process path without cards).  Process 0
 prints the device line (the card's name and power limit, as
-``bench.device_line``), then one JSON line per count with the JAX
+``nvidia-smi`` gives them), then one JSON line per count with the JAX
 script's keys: metric, devices, processes, num_envs, value, unit.  It
 runs on the card and raises where there is none; ``--device cpu`` exists
 for the tests.
@@ -66,6 +66,22 @@ def parse_args(argv=None) -> argparse.Namespace:
   return p.parse_args(argv)
 
 
+def device_line(device: str) -> str:
+  """The card's name and power limit from ``nvidia-smi`` (the device name
+  where it cannot be asked); 'cpu' on the CPU."""
+  if torch.device(device).type != 'cuda':
+    return 'cpu'
+  try:
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=30, check=True).stdout.strip().splitlines()
+    index = torch.device(device).index or 0
+    return out[index].strip()
+  except (OSError, subprocess.SubprocessError, IndexError):
+    return torch.cuda.get_device_name(device)
+
+
 def _spawn_two_process(args) -> None:
   """Start this module twice as a two-process gloo group on the CPU and
   print process 0's lines."""
@@ -100,7 +116,7 @@ def sweep(env_name: str, envs_per_device: int, steps: int, reps: int,
   process 0 gets the lines."""
   from torch import distributed as dist
 
-  from rsr_mjx_tpu_torch import bench, envs
+  from rsr_mjx_tpu_torch import envs
   from rsr_mjx_tpu_torch.envs import core, wrappers
   from rsr_mjx_tpu_torch.train import distributed
 
@@ -117,7 +133,8 @@ def sweep(env_name: str, envs_per_device: int, steps: int, reps: int,
              else None)
 
     def sync():
-      bench._sync(device)
+      if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize(device)
       if group is not None and rank < n:
         dist.barrier(group=group)
 
@@ -155,7 +172,6 @@ def main(argv=None) -> List[dict]:
   if args.spawn_two_process:
     _spawn_two_process(args)
     return []
-  from rsr_mjx_tpu_torch import bench
   from rsr_mjx_tpu_torch.train import distributed
 
   device = args.device
@@ -179,7 +195,7 @@ def main(argv=None) -> List[dict]:
   finally:
     distributed.finish()
   if rank == 0:
-    print(bench.device_line(device), flush=True)
+    print(device_line(device), flush=True)
     for line in lines:
       print(json.dumps(line), flush=True)
   return lines

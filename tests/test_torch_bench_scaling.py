@@ -17,6 +17,9 @@ import pytest
 import torch
 
 from rsr_mjx_tpu_torch import bench_scaling
+from torch_testing import child_env, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ['--envs_per_device', '2', '--steps', '2', '--reps', '1']
@@ -43,8 +46,9 @@ def test_one_process_prints_one_line(capsys):
 def test_spawn_two_process():
   out = subprocess.run(
       [sys.executable, '-m', 'rsr_mjx_tpu_torch.bench_scaling',
-       '--spawn_two_process'] + SMALL, cwd=ROOT, capture_output=True,
-      text=True, timeout=300, check=True).stdout.strip().splitlines()
+       '--spawn_two_process'] + SMALL, cwd=ROOT, env=child_env(),
+      capture_output=True, text=True, timeout=300,
+      check=True).stdout.strip().splitlines()
   lines = [json.loads(s) for s in out if s.startswith('{')]
   assert len(lines) == 1 and 'cpu' in out
   _check(lines[0], 2, 2, 4)

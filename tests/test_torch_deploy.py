@@ -43,6 +43,9 @@ from rsr_mjx_tpu_torch import deploy as pdeploy
 from rsr_mjx_tpu_torch.deploy import perception as pP
 from rsr_mjx_tpu_torch.deploy import ros_adapter as pros
 from rsr_mjx_tpu_torch.deploy import t_push as pt
+from torch_testing import child_env, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, 'data_rsr_demo')
@@ -202,7 +205,7 @@ def jax_actions(tmp_path_factory):
   rows: PPO restoring the Orbax checkpoint, SAC its pickle."""
   tmp = tmp_path_factory.mktemp('jax')
   np.save(tmp / 'obs.npy', _rows())
-  env = dict(os.environ, JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
+  env = child_env(JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
   env.pop('XLA_FLAGS', None)
   done = subprocess.run(
       [sys.executable, '-c', _JAX_SERVER, str(tmp / 'obs.npy'), str(tmp),

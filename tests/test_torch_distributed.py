@@ -52,6 +52,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _WORKER = textwrap.dedent("""

@@ -65,6 +65,9 @@ from rsr_mjx_tpu_torch.train import cli as pcli
 from rsr_mjx_tpu_torch.train import networks as pnets
 from rsr_mjx_tpu_torch.train import sac as psac
 from rsr_mjx_tpu_torch.train import sac_networks as psn
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CUBE, GO2 = 'AirbotCubePushTrain', 'Go2JoystickFlatTerrain'

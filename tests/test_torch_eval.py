@@ -38,6 +38,9 @@ from rsr_mjx_tpu.train import ppo, running_statistics, sac
 from rsr_mjx_tpu_torch import envs as penvs
 from rsr_mjx_tpu_torch.envs import wrappers as pwrappers
 from rsr_mjx_tpu_torch.train import eval_go2, eval_policy
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOGS = os.path.join(ROOT, 'logs')

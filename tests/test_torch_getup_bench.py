@@ -6,15 +6,19 @@ checks and limits) at 4 envs on the CPU: the reset drawn from a seed
 control steps, the port in float32 and in float64, each held to the
 frozen stack in float64 and float32.  On the CPU both run the same plain
 code, so no env leaves the reference in the port's own precision.  Also
-the scene's sizes as the port lays them out against the kernel shapes
-the Go2 configurations state."""
+every benchmark configuration's kernel calls, as one substep of its env
+makes them, against the shapes and counts its ``kernels`` entry states."""
 
 import functools
 
 import pytest
 import torch
 
+import chip_smoke
 from benchmark import common, run
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 CELL = 'go2_getup.rollout'
 SEED = 2**31 + 4242
@@ -54,23 +58,59 @@ def test_getup_rollout_matches_the_frozen_copy(dtype, monkeypatch):
   assert checks['action_gap'] < 1e-5
 
 
-@pytest.mark.parametrize('config, env', [
-    ('go2_getup', 'Go2Getup'), ('go2_joystick', 'Go2JoystickFlatTerrain')])
-def test_scene_sizes_match_the_configuration(config, env):
-  """The contact slots and constraint rows a substep carries, from the
-  model's static layout, and the K1 / K4 shapes the configuration names:
-  the full-collision scene's five pair groups (4 + 2 × 26 + 6 + 24 + 70
-  slots; 56 at condim 3 × 4 pyramid rows, 100 at condim 1, 18
-  friction-loss rows, 24 limit rows) and the joystick's four feet."""
-  from rsr_mjx_tpu_torch import envs
+B = 3  # envs of the recorded substep
+_SUBSTEPS = {}
+
+
+def _substep_calls(config):
+  """The model and the kernel wrappers' calls (``chip_smoke.record_calls``)
+  of one eager CPU substep of the configuration's env at B envs."""
+  if config not in _SUBSTEPS:
+    from rsr_mjx_tpu_torch import envs, physics
+    from rsr_mjx_tpu_torch.physics import linalg_kernels as lk
+
+    cfg = common.load_json('configs', config)
+    m = envs.load(cfg['env'], device='cpu', **cfg['env_kwargs']).model
+    d = physics.make_data(m, B)
+    with torch.no_grad():
+      calls = chip_smoke.record_calls(lk, lambda: physics.step(m, d))
+    _SUBSTEPS[config] = m, calls
+  return _SUBSTEPS[config]
+
+
+@pytest.mark.parametrize('config, kernel', [
+    ('cube_push', 'K1'), ('cube_push', 'K2'), ('cube_push', 'K3'),
+    ('go2_joystick', 'K1'), ('go2_joystick', 'K4'),
+    ('go2_getup', 'K1'), ('go2_getup', 'K4')])
+def test_scene_sizes_match_the_configuration(config, kernel):
+  """Each kernel a configuration names, as one substep of its env calls
+  it: the number of calls and each call's shape, mapped by
+  ``chip_smoke.call_shape`` (which ``chip_smoke.py``'s bounds read) to the
+  ``shape`` of ``benchmark/roofline`` (which ``kernel_roofline.*`` reads),
+  against the configuration's ``kernels`` entry; no other kernel is
+  called.  For the Go2 configurations also the contact slots and
+  constraint rows from the model's static layout: the full-collision
+  scene's five pair groups (4 + 2 × 26 + 6 + 24 + 70 slots; 56 at condim
+  3 × 4 pyramid rows, 100 at condim 1, 18 friction-loss rows, 24 limit
+  rows) and the joystick's four feet."""
   from rsr_mjx_tpu_torch.physics import constraint
 
   cfg = common.load_json('configs', config)
-  m = envs.load(env, device='cpu').model
   k = cfg['kernels']
-  assert m.nv == k['K1']['n'] == k['K4']['nv']
-  assert constraint.layout_cached(m).nefc == k['K4']['R']
-  assert m.ncon == {'go2_getup': 156, 'go2_joystick': 4}[config]
+  m, calls = _substep_calls(config)
+  called = {chip_smoke.KERNELS[name][0]: (name, c)
+            for name, c in calls.items() if c}
+  assert set(called) == set(k)
+  wrapper, kernel_calls = called[kernel]
+  shape = {n: v for n, v in k[kernel].items() if n != 'calls_per_substep'}
+  assert len(kernel_calls) == k[kernel]['calls_per_substep']
+  for args in kernel_calls:
+    assert chip_smoke.call_shape(wrapper, args) == (kernel, shape, B)
+  assert m.ncon == {'cube_push': 480, 'go2_getup': 156,
+                    'go2_joystick': 4}[config]
+  if 'K4' in k:
+    assert m.nv == k['K1']['n'] == k['K4']['nv']
+    assert constraint.layout_cached(m).nefc == k['K4']['R']
   if 'scene' in cfg:
     assert (m.ncon, m.nv) == (cfg['scene']['contact_slots'],
                               cfg['scene']['nv'])

@@ -42,6 +42,9 @@ from rsr_mjx_tpu_torch.envs import wrappers as pwrappers
 from rsr_mjx_tpu_torch.envs.config import Config
 from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.train import networks as pnets
+from torch_testing import child_env, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = os.path.join(ROOT, 'logs', 'go2_joystick_50M_r5', 'final_params.pkl')
@@ -318,6 +321,7 @@ def test_go2_env_needs_neither_mujoco_nor_jax():
       "print('ok', tuple(s.obs['state'].shape))\n"
   )
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
+                       env=child_env(), capture_output=True, text=True,
+                       timeout=300)
   assert out.returncode == 0, out.stderr[-2000:]
   assert out.stdout.strip().endswith('ok (1, 48)')

@@ -43,6 +43,9 @@ from rsr_mjx_tpu_torch.physics import lanes_smooth as pS
 from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.physics import sensors as psensors
 from rsr_mjx_tpu_torch.physics import types as pT
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ENV = 'Go2JoystickFlatTerrain'
 B = 3

@@ -76,6 +76,9 @@ from rsr_mjx_tpu_torch.physics import types as pT
 from rsr_mjx_tpu_torch.train import cli as pcli
 from rsr_mjx_tpu_torch.train import configs as pconfigs
 from rsr_mjx_tpu_torch.train import networks as pnets
+from torch_testing import child_env, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FULL, ROUGH = 'Go2Getup', 'Go2JoystickRoughTerrain'
@@ -531,7 +534,7 @@ def test_getup_ppo_step_and_checkpoint(tmp_path, monkeypatch):
              ).astype(np.float32) for k in ('state', 'privileged_state')}
   assert obs['state'].shape == (8, 42)
   np.savez(tmp_path / 'obs.npz', **obs)
-  env = dict(os.environ, JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
+  env = child_env(JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
   done = subprocess.run(
       [sys.executable, '-c', _JAX_READER, pkl, str(tmp_path / 'obs.npz'),
        str(tmp_path / 'act.npy')], env=env, cwd=ROOT, capture_output=True,

@@ -43,6 +43,9 @@ from rsr_mjx_tpu_torch import envs as penvs
 from rsr_mjx_tpu_torch.envs import wrappers as pwrappers
 from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.train import networks as pnets
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 3

@@ -1,8 +1,9 @@
 """The physics substep replayed from a CUDA graph (``physics/graphed.py``).
 
 On the CPU the step runs eagerly; the tests here emulate a graph with
-``_Rerun``, which runs the captured function again at each replay and writes
-its outputs where the capture left them, as a graph's kernels do.  That
+``torch_testing.Rerun``, which runs the captured function again at each
+replay and writes its outputs where the capture left them, as a graph's
+kernels do.  That
 reaches the whole of the module but the CUDA calls: the eligibility rule,
 the cache and its keys, the static inputs, the plan that passes inputs
 through and copies outputs out, and the counters.  Two more CPU tests hold
@@ -27,7 +28,6 @@ import weakref
 
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from rsr_mjx_tpu_torch import envs
 from rsr_mjx_tpu_torch.envs import wrappers
@@ -36,30 +36,15 @@ from rsr_mjx_tpu_torch.physics import linalg_kernels as lk
 from rsr_mjx_tpu_torch.physics.types import IntegratorType
 from rsr_mjx_tpu_torch.utils import cuda_graphs
 from rsr_mjx_tpu_torch.utils import tracing
+import torch_testing
+from torch_testing import one_thread  # noqa: F401  (a fixture)
 
 forward = importlib.import_module('rsr_mjx_tpu_torch.physics.forward')
 physics = importlib.import_module('rsr_mjx_tpu_torch.physics')
 
 CUBE, GO2 = 'AirbotCubePushTrain', 'Go2JoystickFlatTerrain'
 
-
-class _Rerun:
-  """A CUDA graph's stand-in on the CPU: ``replay`` runs the captured
-  function again and copies its outputs into the tensors the capture
-  returned."""
-
-  def __init__(self, fn, out):
-    self.fn, self.out = fn, out
-
-  def replay(self):
-    for o, n in zip(graphed._leaves(self.out), graphed._leaves(self.fn())):
-      if o is not n:
-        o.copy_(n)
-
-
-def _rerun_capture(fn, pool, stream):
-  out = fn()
-  return _Rerun(fn, out), out
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 
 @pytest.fixture
@@ -67,10 +52,7 @@ def emulated(monkeypatch):
   """The CUDA calls of graphed (``utils/cuda_graphs``) replaced by their
   CPU stand-ins."""
   monkeypatch.setattr(graphed, '_on_card', lambda d: True)
-  monkeypatch.setattr(cuda_graphs, 'new_pool', lambda: None)
-  monkeypatch.setattr(cuda_graphs, 'side_stream', lambda device: None)
-  monkeypatch.setattr(cuda_graphs, 'on_stream', lambda stream, fn: fn())
-  monkeypatch.setattr(cuda_graphs, 'capture', _rerun_capture)
+  torch_testing.emulate_cuda_graphs(monkeypatch, graphed._leaves)
   graphed.clear()
   yield
   graphed.clear()
@@ -357,27 +339,6 @@ def test_counters_in_snapshot(emulated):
 # ---------------------------------------------------------------------------
 # What a capture needs of the eager substep
 
-_HOST = ('aten._local_scalar_dense.default', 'aten.nonzero.default',
-         'aten.lift_fresh.default', 'aten.lift_fresh_copy.default')
-
-
-class _HostOps(TorchDispatchMode):
-  """Records the operations that read a device value on the host or make a
-  tensor of host data (on a card: a copy from pageable memory).  A 0-dim
-  tensor of a Python number is left out: on a card it is a fill."""
-
-  def __init__(self):
-    super().__init__()
-    self.seen = []
-
-  def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-    out = func(*args, **(kwargs or {}))
-    if str(func) in _HOST and not (str(func).startswith('aten.lift')
-                                   and args[0].dim() == 0):
-      self.seen.append(str(func))
-    return out
-
-
 @pytest.mark.parametrize('name, randomized', [
     (n, r) for n in (CUBE, GO2, 'Go2Getup', 'Go2JoystickRoughTerrain')
     for r in (False, True)] + [('AirbotTPush', False)])
@@ -394,7 +355,7 @@ def test_substep_is_capturable(name, randomized):
   with torch.no_grad():
     for sensors in (False, True):
       forward._step(m, d, sensors)
-      rec = _HostOps()
+      rec = torch_testing.HostOps()
       with rec:
         forward._step(m, d, sensors)
       assert rec.seen == [], sensors

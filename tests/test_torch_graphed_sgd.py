@@ -1,8 +1,9 @@
 """The PPO minibatch step replayed from a CUDA graph (``train/graphed_sgd.py``).
 
 On the CPU the step runs eagerly; the tests here emulate a graph with
-``_Rerun``, which runs the captured function again at each replay and writes
-its outputs where the capture left them, as a graph's kernels do.  That
+``torch_testing.Rerun``, which runs the captured function again at each
+replay and writes its outputs where the capture left them, as a graph's
+kernels do.  That
 reaches the whole of the module but the CUDA calls: the eligibility rule,
 the cache and its keys, the static inputs, the copies out, the gradients
 left in ``.grad``, the device-side Adam (``ppo.adam_step_``) and the
@@ -38,7 +39,8 @@ from rsr_mjx_tpu_torch.train.losses import Transition
 from rsr_mjx_tpu_torch.train.running_statistics import RunningStatisticsState
 from rsr_mjx_tpu_torch.utils import cuda_graphs
 from rsr_mjx_tpu_torch.utils import tracing
-from test_torch_graphed import _HostOps
+import torch_testing
+from torch_testing import one_thread  # noqa: F401  (a fixture)
 
 OBS = {'state': 48, 'privileged_state': 123}
 ACT = 12
@@ -46,6 +48,8 @@ LR = 3e-4
 KW = dict(past_data=None, entropy_cost=0.01, discounting=0.97,
           reward_scaling=1.0, gae_lambda=0.95, clipping_epsilon=0.3,
           normalize_advantage=True, rsr_loss_scale=1.0)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 
 def _nets(device='cpu'):
@@ -100,24 +104,6 @@ def _rsr_data(device='cpu'):
                  n_anchors=16, width=width, bandwidth=2.0).to(device)
 
 
-class _Rerun:
-  """A CUDA graph's stand-in on the CPU: ``replay`` runs the captured
-  function again and copies its outputs into the tensors the capture
-  returned."""
-
-  def __init__(self, fn, out):
-    self.fn, self.out = fn, out
-
-  def replay(self):
-    for o, n in zip(self.out, self.fn()):
-      o.copy_(n)
-
-
-def _rerun_capture(fn, pool, stream):
-  out = fn()
-  return _Rerun(fn, out), out
-
-
 class _Inert:
   """A graph's stand-in that keeps no function and replays nothing."""
 
@@ -153,10 +139,7 @@ def emulated(monkeypatch):
                       _dry_capture_graph(graphed_sgd._capture_graph))
   monkeypatch.setattr(graphed_sgd, '_on_card', lambda t: True)
   monkeypatch.setattr(graphed_sgd, '_capturing', lambda: False)
-  monkeypatch.setattr(cuda_graphs, 'new_pool', lambda: None)
-  monkeypatch.setattr(cuda_graphs, 'side_stream', lambda device: None)
-  monkeypatch.setattr(cuda_graphs, 'on_stream', lambda stream, fn: fn())
-  monkeypatch.setattr(cuda_graphs, 'capture', _rerun_capture)
+  torch_testing.emulate_cuda_graphs(monkeypatch)
   graphed_sgd.clear()
   tracing.reset()
   yield
@@ -191,7 +174,7 @@ def test_step_is_capturable(clip, rsr):
   opt = ppo.make_optimizer(net.parameters(), LR)
   kw = dict(KW, past_data=_rsr_data() if rsr else None)
   _step(net, opt, 0, kw=kw, clip=clip, eager=True)
-  rec = _HostOps()
+  rec = torch_testing.HostOps()
   with rec:
     metrics = _step(net, opt, 1, kw=kw, clip=clip, eager=True)
   assert rec.seen == []

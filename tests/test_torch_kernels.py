@@ -21,6 +21,9 @@ import torch
 
 from rsr_mjx_tpu.physics import linalg_kernels as jlk
 from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 NV, B = 20, 3
 NSEL, NCON, PAIRS, K = 24, 480, 30, 16  # cube-push: 30 box pairs × 16 slots

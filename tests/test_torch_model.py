@@ -23,6 +23,9 @@ from rsr_mjx_tpu_torch.physics import constraint as pC
 from rsr_mjx_tpu_torch.physics import io as pio
 from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.physics import types as pT
+from torch_testing import child_env, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (nq, nv, nu, ncon, ncon_sel) of each Airbot env's model
@@ -233,7 +236,8 @@ def test_port_imports_without_the_optional_packages():
       'import rsr_mjx_tpu_torch.train.eval_go2, rsr_mjx_tpu_torch.bench_scaling\n'
       "assert 'jax' not in sys.modules\n")
   done = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
-                        capture_output=True, text=True, timeout=120)
+                        env=child_env(), capture_output=True, text=True,
+                        timeout=120)
   assert done.returncode == 0, done.stderr[-2000:]
 
 

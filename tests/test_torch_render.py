@@ -39,6 +39,9 @@ from rsr_mjx_tpu_torch import envs as penvs
 from rsr_mjx_tpu_torch.envs.core import Wrapper
 from rsr_mjx_tpu_torch.envs.go2 import visual
 from rsr_mjx_tpu_torch.utils import rendering
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENVS = ('AirbotCubePush', 'AirbotCubePushTrain', 'AirbotTPush',

@@ -37,6 +37,9 @@ from rsr_mjx_tpu_torch.rsr import datasets as pdatasets
 from rsr_mjx_tpu_torch.rsr import distribution as pdist
 from rsr_mjx_tpu_torch.rsr import loss as ploss
 from rsr_mjx_tpu_torch.rsr import pipeline as ppipeline
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, 'data_rsr_demo')

@@ -46,6 +46,9 @@ from rsr_mjx_tpu_torch.train import networks as pnets
 from rsr_mjx_tpu_torch.train import running_statistics as prs
 from rsr_mjx_tpu_torch.train import sac as psac
 from rsr_mjx_tpu_torch.train import sac_networks as psn
+from torch_testing import child_env, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(ROOT, 'data_rsr_demo')
@@ -131,7 +134,7 @@ def test_rsr_cli_writes_a_pickle_the_jax_package_reads_without_torch(
   obs = (norm.mean.numpy() + norm.std.numpy()
          * rng.normal(size=(16, 23))).astype(np.float32)
   np.save(tmp_path / 'obs.npy', obs)
-  env = dict(os.environ, JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
+  env = child_env(JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
   done = subprocess.run(
       [sys.executable, '-c', _JAX_READER, pkl, str(tmp_path / 'obs.npy'),
        str(tmp_path / 'act.npy')], env=env, cwd=ROOT, capture_output=True,
@@ -215,7 +218,7 @@ def test_rsr_cli_trains_sac_and_dict_observations(case, tmp_path):
   obs = (norm.mean.numpy() + norm.std.numpy()
          * rng.normal(size=(16, obs_size))).astype(np.float32)
   np.save(tmp_path / 'obs.npy', obs)
-  env = dict(os.environ, JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
+  env = child_env(JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
   done = subprocess.run(
       [sys.executable, '-c', _JAX_SAC_READER, pkl, str(tmp_path / 'obs.npy'),
        str(tmp_path / 'act.npy')], env=env, cwd=ROOT, capture_output=True,

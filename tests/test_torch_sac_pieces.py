@@ -56,6 +56,9 @@ from rsr_mjx_tpu_torch.train import running_statistics as prs
 from rsr_mjx_tpu_torch.train import sac as psac
 from rsr_mjx_tpu_torch.train import sac_losses as psl
 from rsr_mjx_tpu_torch.train import sac_networks as psn
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAC_PARAMS = os.path.join(ROOT, 'logs', 'cube_sac_500k_r5', 'final_params.pkl')

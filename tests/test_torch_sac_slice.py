@@ -35,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from rsr_mjx_tpu import envs as jenvs
@@ -54,6 +55,9 @@ from rsr_mjx_tpu_torch.train import networks as pnets
 from rsr_mjx_tpu_torch.train import replay_buffer as prb
 from rsr_mjx_tpu_torch.train import sac as psac
 from rsr_mjx_tpu_torch.train import sac_networks as psn
+from torch_testing import child_env, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = 'AirbotCubePushTrain'
@@ -253,7 +257,7 @@ np.save(sys.argv[3], np.asarray(net.distribution.mode(logits)))
 
 def _jax_actions(tmp_path, pkl, obs):
   np.save(tmp_path / 'obs.npy', obs)
-  env = dict(os.environ, JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
+  env = child_env(JAX_PLATFORMS='cpu', PYTHONPATH=ROOT)
   done = subprocess.run(
       [sys.executable, '-c', _JAX_READER, str(pkl), str(tmp_path / 'obs.npy'),
        str(tmp_path / 'act.npy')], env=env, cwd=ROOT, capture_output=True,

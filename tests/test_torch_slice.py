@@ -24,6 +24,7 @@ import os
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from rsr_mjx_tpu import envs as jenvs
@@ -35,6 +36,9 @@ from rsr_mjx_tpu.train import ppo, running_statistics, sac
 from rsr_mjx_tpu_torch import envs as penvs
 from rsr_mjx_tpu_torch.envs import wrappers as pwrappers
 from rsr_mjx_tpu_torch.train import networks as pnets
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = os.path.join(ROOT, 'logs', 'cube_ppo_15M_r4', 'final_params.pkl')

@@ -39,6 +39,9 @@ from rsr_mjx_tpu.physics import linalg_kernels as jlk
 from rsr_mjx_tpu.physics import solver as jsolver
 from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.physics import solver as psolver
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 
 def _grounded(port, jax_, ref, name, floor=1e-5):

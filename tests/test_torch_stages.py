@@ -27,6 +27,9 @@ from rsr_mjx_tpu_torch.physics import constraint as pC
 from rsr_mjx_tpu_torch.physics import lanes_assembly as pA
 from rsr_mjx_tpu_torch.physics import lanes_kinematics as pK
 from rsr_mjx_tpu_torch.physics import lanes_smooth as pS
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 B = 3
 

@@ -13,6 +13,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from rsr_mjx_tpu import envs as jenvs
@@ -23,6 +24,9 @@ from rsr_mjx_tpu_torch import envs as penvs
 from rsr_mjx_tpu_torch import physics as pphysics
 from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.physics import types as pT
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 B = 3
 SMOOTH = ('xpos', 'xquat', 'xmat', 'geom_xpos', 'geom_xmat', 'site_xpos',

@@ -47,6 +47,9 @@ from rsr_mjx_tpu_torch.train import checkpoint
 from rsr_mjx_tpu_torch.train import configs as pconfigs
 from rsr_mjx_tpu_torch.train import networks as pnets
 from rsr_mjx_tpu_torch.train import running_statistics as prs
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ENV = 'AirbotTPush'
 B = 3

@@ -17,6 +17,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.utils import tracing
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PPO = os.path.join(ROOT, 'logs', 'cube_ppo_15M_r4', 'final_params.pkl')

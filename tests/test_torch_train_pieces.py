@@ -40,6 +40,9 @@ from rsr_mjx_tpu_torch.train import losses as plosses
 from rsr_mjx_tpu_torch.train import networks as pnets
 from rsr_mjx_tpu_torch.train import ppo as pppo
 from rsr_mjx_tpu_torch.train import running_statistics as prs
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 T, B, A = 5, 4, 3
 SIZES = dict(policy_hidden_layer_sizes=(8, 8), value_hidden_layer_sizes=(16, 16))

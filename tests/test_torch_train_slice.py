@@ -30,6 +30,7 @@ import os
 import jax
 import numpy as np
 import optax
+import pytest
 import torch
 
 from rsr_mjx_tpu import envs as jenvs
@@ -46,6 +47,9 @@ from rsr_mjx_tpu_torch.train import checkpoint as pcheckpoint
 from rsr_mjx_tpu_torch.train import cli as pcli
 from rsr_mjx_tpu_torch.train import networks as pnets
 from rsr_mjx_tpu_torch.train import ppo as pppo
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ENV = 'AirbotCubePushTrain'
 B, T, BATCH, NMB, EPISODE = 4, 2, 2, 2, 2

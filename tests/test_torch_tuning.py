@@ -57,6 +57,9 @@ from rsr_mjx_tpu_torch.physics import linalg_kernels as plk
 from rsr_mjx_tpu_torch.rsr import datasets as pdatasets
 from rsr_mjx_tpu_torch.rsr import pipeline as ppipeline
 from rsr_mjx_tpu_torch.rsr import tuning_cli
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, 'data_rsr_demo')

@@ -31,6 +31,9 @@ from rsr_mjx_tpu.utils import gait as jgait
 from rsr_mjx_tpu.utils import reward as jreward
 from rsr_mjx_tpu_torch.utils import gait as pgait
 from rsr_mjx_tpu_torch.utils import reward as preward
+from torch_testing import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures('one_thread')
 
 ATOL = 4 * np.finfo(np.float32).eps
 SIGMOIDS = ('gaussian', 'hyperbolic', 'long_tail', 'reciprocal', 'cosine',
@@ -119,20 +122,7 @@ TINY = ['--device', 'cpu', '--num_timesteps', '16', '--num_envs', '4',
         '--num_eval_envs', '4']
 
 
-@pytest.fixture
-def one_thread():
-  """One intra-op thread for a CPU training run: at these sizes torch's
-  threads only spin, which costs little alone (on an 8-core CPU, 14.3 s
-  of CPU time on one thread, 44.7 s on eight, in the same wall time) but
-  stalls the run under the suite's other workers."""
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
-
-
-def test_cli_tb_wandb_render_and_progress_png(tmp_path, monkeypatch,
-                                              one_thread):
+def test_cli_tb_wandb_render_and_progress_png(tmp_path, monkeypatch):
   import cv2
 
   from rsr_mjx_tpu_torch.train import cli

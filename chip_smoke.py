@@ -42,7 +42,7 @@ On the card every physics substep outside the tuning gradient is replayed
 from a CUDA graph (``physics/graphed.py``), and a replay calls no kernel
 wrapper: the launch counts the phases check (``linalg_kernels.LAUNCHES``)
 are inferred there, the capture's counts added at each replay.  Each
-``profile_control_step`` holds them to the card: the K1-K4 kernels a
+``profile_control_step`` holds them to the card: the K1-K5 kernels a
 profiled control step ran, counted by name in the device trace, equal the
 counts.  The kernels' recorded inputs come from one eager control step
 (``record_calls``); the paths measured run as they run for a user.
@@ -50,7 +50,7 @@ counts.  The kernels' recorded inputs come from one eager control step
 Phases; any failure exits non-zero before the result line is printed:
 
   1. device   a CUDA card is required (no CPU path); print the card's name and
-              power limit; TF32 off; build the four CUDA kernels from
+              power limit; TF32 off; build the five CUDA kernels from
               ``csrc/``.
   2. kernels  each kernel on the inputs its path gives it (recorded from
               one control step of the batch), held against its plain
@@ -83,7 +83,13 @@ Phases; any failure exits non-zero before the result line is printed:
               its two decompositions cross, at n 20 and B 3072 and 16384
               at every E; K2 at slot counts that are no multiple of 32,
               past 512 and with every slot selected, on ties, inf, -0 and
-              NaN (check_k2_sizes).
+              NaN (check_k2_sizes).  K5 assemble_rows (check_k5) on the
+              joystick's rows (B 8192), getup's full scene (B 8192, a reset
+              of GO2_ENVS envs) with and without the Go2 domain
+              randomiser, and cube-push's generic route (B 2048): J and
+              floss bit for bit, D within 4 ulp, aref within the rounding
+              of its nv-term sum J·qvel (k5_aref_tolerance), also cut by 3
+              envs.
   3. paths    for each path: 256 envs of the batch run 3 control steps on
               the card, on the CPU (plain versions) and on the CPU in
               float64; the card must be as close to float64 as the CPU's
@@ -339,6 +345,11 @@ KERNELS = {
     '_newton_lanes_core': (
         'K4', 'rsr_mjx_tpu_torch/csrc/newton_generic.cu',
         'rsr_mjx_tpu/physics/linalg_kernels.py:878'),
+    # no TPU kernel: the generic contact rows that XLA fused inside the JAX
+    # lanes assembly's jit
+    'assemble_rows': (
+        'K5', 'rsr_mjx_tpu_torch/csrc/assemble_rows.cu',
+        'none (XLA fusion of rsr_mjx_tpu/physics/lanes_assembly.py)'),
 }
 # the device kernels each wrapper launches, by their names in a trace
 DEVICE_KERNELS = {
@@ -346,6 +357,7 @@ DEVICE_KERNELS = {
     'contact_select_lanes': ('contact_select_kernel',),
     'newton_lanes_pyr_t': ('newton_pyr_kernel',),
     '_newton_lanes_core': ('newton_generic_kernel',),
+    'assemble_rows': ('assemble_rows_kernel',),
 }
 
 
@@ -525,7 +537,8 @@ def record_calls(lk, fn, keep=None):
   beside the path measured (a control step, ``record_last_step``), not the
   path itself."""
   calls = {name: [] for name in KERNELS}
-  real = {name: getattr(lk, name) for name in KERNELS}
+  # an older commit's port (``--wrapper-times DIR``) may lack a wrapper
+  real = {name: getattr(lk, name) for name in KERNELS if hasattr(lk, name)}
   graphed = sys.modules.get(lk.__name__.rpartition('.')[0] + '.graphed')
   on_card = graphed and graphed._on_card
   if graphed:
@@ -539,7 +552,7 @@ def record_calls(lk, fn, keep=None):
       return real[name](*args)
     return rec
 
-  for name in KERNELS:
+  for name in real:
     setattr(lk, name, recorder(name))
   try:
     fn()
@@ -1177,6 +1190,133 @@ def check_runtime_widths(torch, lk):
     raise SystemExit('a Newton kernel disagrees at a width not compiled in')
 
 
+def k5_aref_tolerance(torch, spec, ins, J, aref):
+  """Per-row bound on |aref of K5 - aref of its plain version| for the
+  contact rows J (nv, n_rows, B), aref (n_rows, B) of the plain version on
+  inputs ``ins`` (``linalg_kernels.assemble_rows``'s eleven).  Both sum
+  J·qvel over the nv dofs in fp32, each within (nv - 1) u Σ|J_v qvel_v| of
+  the exact sum (u = 2^-24; K5 adds in dof order, torch.sum in its own),
+  and aref scales that sum by |b| (``constraint._kbi`` of the row's
+  solref): 4 nv u |b| Σ|J_v qvel_v| + 4 u |aref| bounds the gap and the
+  roundings after it."""
+  import numpy as np
+
+  C = _port_module('physics.constraint')
+  qvel, solref, solimp = ins[0], ins[7], ins[8]
+  tab = spec.tab.cpu().numpy()
+  per = np.where(tab[:, 2] == 1, 1, 2 * (tab[:, 2] - 1))
+  slot = torch.as_tensor(np.repeat(tab[:, 0], per), device=qvel.device)
+  _, bb = C._kbi(solref[slot].double(), solimp[slot][:, 1].double())
+  S = (J.double() * qvel.double()[:, None]).abs().sum(0)
+  nv, u = qvel.shape[0], 2.0**-24
+  return 4 * nv * u * bb.abs() * S + 4 * u * aref.double().abs()
+
+
+def k5_work(args):
+  """(bytes, FLOPs) of one K5 call: it writes J, aref, D and floss of the
+  contact rows and reads each slot's 13 contact words and its parameters
+  (shared or per env), the dofs' cdof, anchors and qvel (10 words a dof)
+  and the table.  FLOPs: per contact and dof 26 for the translational
+  Jacobian and Jn, and per friction axis 5 for its contraction and 7 for
+  Jn ± μ·axis and the two velocity terms (condim 1: 2 for its term)."""
+  import numpy as np
+
+  spec, _, qvel, *rest = args
+  nv, B = qvel.shape
+  nc, n = spec.tab.shape[0], spec.n_rows
+  dist, params = rest[2], rest[5:10]
+  ncon = dist.shape[0]
+  nbytes = 4 * (n * B * (nv + 3) + ncon * 13 * B + nv * 10 * B
+                + sum(p.numel() for p in params) + 3 * nc)
+  cds = spec.tab[:, 2].cpu().numpy()
+  per = np.where(cds == 1, 28, 26 + 12 * (cds - 1))
+  return nbytes, float(nv * B * per.sum())
+
+
+def k5_row(torch, lk, tag, args):
+  """K5 against its plain version on the card on the recorded arguments of
+  one call (the assembly's J, aref, D, floss copied, so the structured rows
+  at their head stay as the assembly wrote them): J bit for bit (a zero's
+  sign aside: torch.equal), floss too; D within 4 ulp (the plain version's
+  powf is torch's build, the kernel's this toolkit's); aref within
+  k5_aref_tolerance; on the batch cut by 3 envs too.  Kernel and plain
+  times, and the profiler's time of ``assemble_rows_kernel``."""
+  spec, imp, *rest = args
+  ins = tuple(rest[:11])
+
+  def check(ins, outs):
+    kern = tuple(x.clone() for x in outs)
+    plain = tuple(x.clone() for x in outs)
+    lk.assemble_rows(spec, imp, *ins, *kern)
+    lk.assemble_rows_plain(spec, imp, *ins, *plain)
+    r0 = kern[0].shape[1] - spec.n_rows
+    same_J = torch.equal(kern[0], plain[0]) and torch.equal(kern[3], plain[3])
+    D_k, D_p = kern[2][r0:], plain[2][r0:]
+    d_ratio = ((D_k - D_p).abs().double()
+               / (4 * 2.0**-24 * D_p.abs().double()).clamp(min=1e-300))
+    tol = k5_aref_tolerance(torch, spec, ins, plain[0][:, r0:],
+                            plain[1][r0:])
+    a_ratio = (kern[1][r0:] - plain[1][r0:]).abs().double() / tol.clamp(
+        min=1e-300)
+    heads = all(torch.equal(k[:, :r0] if k.dim() == 3 else k[:r0],
+                            p[:, :r0] if p.dim() == 3 else p[:r0])
+                for k, p in zip(kern, plain))
+    err = (kern[0] - plain[0]).abs().max().item()
+    return (same_J and heads and bool(torch.isfinite(kern[0]).all()),
+            torch.equal(D_k, D_p), d_ratio.max().item(),
+            a_ratio.max().item(), err)
+
+  B = ins[0].shape[-1]
+  cut = lambda t: (t[..., :B - 3].contiguous() if t.shape[-1] == B else t)
+  res = check(ins, rest[11:])
+  res_cut = check(tuple(cut(t) for t in ins), tuple(cut(t) for t in rest[11:]))
+  ok = all(r[0] and r[2] <= 1.0 and r[3] <= 1.0 for r in (res, res_cut))
+  outs = tuple(x.clone() for x in rest[11:])
+  run_k = lambda: lk.assemble_rows(spec, imp, *ins, *outs)
+  run_p = lambda: lk.assemble_rows_plain(spec, imp, *ins, *outs)
+  nv = ins[0].shape[0]
+  note = (f'{tag}: nv {nv}, {spec.tab.shape[0]} slots, {spec.n_rows} contact '
+          f'rows of {rest[11].shape[1]}, B {B}, env axes of friction, '
+          f'solref, solimp, invweight, dmask '
+          f'{[t.shape[-1] for t in ins[6:11]]}; J bit-equal {res[0]} '
+          f'(cut {res_cut[0]}), D bit-equal {res[1]} (cut {res_cut[1]})')
+  return dict(
+      max_abs_err=res[4], note=note,
+      ratios=f'D {res[2]:.3g} aref {res[3]:.3g} (cut: D {res_cut[2]:.3g} '
+      f'aref {res_cut[3]:.3g})', ok=ok,
+      ms=time_ms(torch, run_k, 20),
+      profiler_ms=profiler_ms(torch, run_k, 20, 'assemble_rows_kernel'),
+      plain_ms=time_ms(torch, run_p, 3), library_ms=None,
+      work=k5_work(args))
+
+
+def check_k5(torch, port, lk, gen, joystick, cube):
+  """Phase 2: K5 (k5_row) at four shapes: the recorded calls of the Go2
+  joystick path (B 8192, 4 slots, 58 rows) and of cube-push's generic
+  route (K2's 24 selected contacts at B 2048: per-env parameters and dof
+  masks), and two made here from a getup reset of GO2_ENVS envs (the
+  full-collision scene, 156 slots, 366 rows): its forward, and its
+  forward under the Go2 domain randomiser (a per-env floor friction beside
+  shared parameters).  Returns the rows; the getup row is K5's own."""
+  fwd_fused = port.fwd_fused
+  env0 = port.envs.load(GETUP_ENV, device=DEV)
+  env = port.wrappers.wrap_for_training(env0, episode_length=1000,
+                                        num_envs=GO2_ENVS)
+  d = env.reset(gen).data
+  m = env0.model
+  getup = record_calls(lk, lambda: fwd_fused.forward_lanes(
+      m, d, implicit=True))['assemble_rows'][-1]
+  mb = _port_module('envs.go2.randomize').domain_randomize(m, gen, GO2_ENVS)
+  dr = record_calls(lk, lambda: fwd_fused.forward_lanes(
+      mb, d, implicit=True))['assemble_rows'][-1]
+  rows = {'assemble_rows': k5_row(torch, lk, 'getup', getup)}
+  rows['assemble_rows [getup DR]'] = k5_row(torch, lk, 'getup DR', dr)
+  rows['assemble_rows [joystick]'] = k5_row(torch, lk, 'joystick', joystick)
+  rows['assemble_rows [cube-push generic]'] = k5_row(
+      torch, lk, 'cube-push generic', cube)
+  return rows
+
+
 def check_kernels(torch, lk, calls):
   """Phase 2: every kernel against its plain version on recorded inputs.
 
@@ -1350,7 +1490,7 @@ def profile_control_step(torch, tag, env, policy, state, step_ms,
                          first=None):
   """One control step under torch.profiler: wall time, device busy time,
   device kernels launched, and the host time of each stage; fails unless
-  the K1-K4 kernels the trace holds, by name (DEVICE_KERNELS), are as many
+  the K1-K5 kernels the trace holds, by name (DEVICE_KERNELS), are as many
   as the launch counts say (inferred where the step replays a graph:
   this is what holds them to the card).  The idle
   share divides the device busy time by ``step_ms``, the wall time of a
@@ -1400,7 +1540,7 @@ def profile_control_step(torch, tag, env, policy, state, step_ms,
   counted = {k: n - before[k] for k, n in lk.LAUNCHES.items()}
   ran = {w: sum(e.count for e in kernels if any(n in e.key for n in names))
          for w, names in DEVICE_KERNELS.items()}
-  log(f'{tag} profile: K1-K4 in the device trace {ran}, launch counts '
+  log(f'{tag} profile: K1-K5 in the device trace {ran}, launch counts '
       f'{counted} {"ok" if ran == counted else "FAIL"}')
   if ran != counted:
     raise SystemExit(f'{tag}: the card ran other kernels than counted')
@@ -1451,7 +1591,8 @@ def rollout_cube(torch, lk, env0, env, policy, state, card, tag='slice',
   launches = dict(lk.LAUNCHES)
   substeps = STEPS * n_sub
   expect = {'spd_solve_lanes': 2 * substeps, 'contact_select_lanes': substeps,
-            'newton_lanes_pyr_t': substeps, '_newton_lanes_core': 0}
+            'newton_lanes_pyr_t': substeps, '_newton_lanes_core': 0,
+            'assemble_rows': 0}
   if launches != expect:
     raise SystemExit(f'launch counts {launches} != expected {expect}')
   rew = torch.stack(rewards)
@@ -1502,7 +1643,8 @@ def rollout_go2(torch, lk, env0, env, policy, state, card):
   launches = dict(lk.LAUNCHES)
   substeps = GO2_STEPS * n_sub
   expect = {'spd_solve_lanes': substeps, 'contact_select_lanes': 0,
-            'newton_lanes_pyr_t': 0, '_newton_lanes_core': substeps}
+            'newton_lanes_pyr_t': 0, '_newton_lanes_core': substeps,
+            'assemble_rows': substeps}
   if launches != expect:
     raise SystemExit(f'launch counts {launches} != expected {expect}')
   check_finite(torch, (
@@ -1801,11 +1943,13 @@ def training_checks(torch, r, tag, steps, per_step, T, n_sub, n_mb, n_envs,
 # per substep K1 twice, K2 and K3 once; the reset's forward once each
 CUBE_TRAIN_LAUNCHES = lambda S: {
     'spd_solve_lanes': 2 * S + 1, 'contact_select_lanes': S + 1,
-    'newton_lanes_pyr_t': S + 1, '_newton_lanes_core': 0}
-# per substep K1 and K4 once; the reset's forward once each
+    'newton_lanes_pyr_t': S + 1, '_newton_lanes_core': 0,
+    'assemble_rows': 0}
+# per substep K1, K5 and K4 once; the reset's forward once each
 GO2_TRAIN_LAUNCHES = lambda S: {
     'spd_solve_lanes': S + 1, 'contact_select_lanes': 0,
-    'newton_lanes_pyr_t': 0, '_newton_lanes_core': S + 1}
+    'newton_lanes_pyr_t': 0, '_newton_lanes_core': S + 1,
+    'assemble_rows': S + 1}
 
 
 def cube_kernel_rows(torch, lk, calls, B, tag):
@@ -2042,10 +2186,11 @@ TUNE_FD_STEP = 1e-4  # the differences of the float64 loss printed beside
 # of JAX's backward too)
 TUNE_LAUNCHES = lambda S: {
     'spd_solve_lanes': 7 * S - 1, 'contact_select_lanes': 2 * S,
-    'newton_lanes_pyr_t': S, '_newton_lanes_core': S}
+    'newton_lanes_pyr_t': S, '_newton_lanes_core': S, 'assemble_rows': S}
 # the template: the reset's forward, then one control step (4 substeps)
 TUNE_TEMPLATE_LAUNCHES = {'spd_solve_lanes': 9, 'contact_select_lanes': 5,
-                          'newton_lanes_pyr_t': 5, '_newton_lanes_core': 0}
+                          'newton_lanes_pyr_t': 5, '_newton_lanes_core': 0,
+                          'assemble_rows': 0}
 
 
 def state_to(torch, state, device, dtype):
@@ -3111,7 +3256,8 @@ GETUP_SETTLE = 125  # substeps of a getup reset: settle_time / sim_dt
 # per substep K1 and K4 once; the reset's forward and its settle
 GETUP_TRAIN_LAUNCHES = lambda S: {
     'spd_solve_lanes': S + 1 + GETUP_SETTLE, 'contact_select_lanes': 0,
-    'newton_lanes_pyr_t': 0, '_newton_lanes_core': S + 1 + GETUP_SETTLE}
+    'newton_lanes_pyr_t': 0, '_newton_lanes_core': S + 1 + GETUP_SETTLE,
+    'assemble_rows': S + 1 + GETUP_SETTLE}
 
 
 def task_policy(torch, port, name, params, device):
@@ -3175,7 +3321,8 @@ def task_rollout(torch, lk, name, env0, env, policy, state, card):
   launches = dict(lk.LAUNCHES)
   substeps = TASK_STEPS * n_sub
   expect = {'spd_solve_lanes': substeps, 'contact_select_lanes': 0,
-            'newton_lanes_pyr_t': 0, '_newton_lanes_core': substeps}
+            'newton_lanes_pyr_t': 0, '_newton_lanes_core': substeps,
+            'assemble_rows': substeps}
   if launches != expect:
     raise SystemExit(f'{name}: launch counts {launches} != {expect}')
   sizes = env0.observation_size
@@ -3291,7 +3438,8 @@ def go2_tasks_phase(torch, port, lk, card):
     settle = GETUP_SETTLE if name == GETUP_ENV else 0
     launches = dict(lk.LAUNCHES)
     expect = {'spd_solve_lanes': 1 + settle, 'contact_select_lanes': 0,
-              'newton_lanes_pyr_t': 0, '_newton_lanes_core': 1 + settle}
+              'newton_lanes_pyr_t': 0, '_newton_lanes_core': 1 + settle,
+              'assemble_rows': 1 + settle}
     m = env0.model
     log(f'go2 tasks: {name} nq {m.nq}, nv {m.nv}, {m.ncon} contact slots, '
         f'nefc {_port_module("physics.constraint").layout_cached(m).nefc}; '
@@ -3373,7 +3521,7 @@ EVAL_CLI_STEPS = 10
 GETUP_PARAMS = os.path.join(ROOT, 'logs', 'go2_getup_5M_r5',
                             'final_params.pkl')
 CUBE_PATH = ('spd_solve_lanes', 'contact_select_lanes', 'newton_lanes_pyr_t')
-GO2_PATH = ('spd_solve_lanes', '_newton_lanes_core')
+GO2_PATH = ('spd_solve_lanes', '_newton_lanes_core', 'assemble_rows')
 # the training runs of the group of one: PPO's 2 unrolls of 2 control steps
 # and one minibatch update, SAC's prefill of one actor step and one
 # training step, both at 256 envs with the normalizer on
@@ -3838,7 +3986,7 @@ def render_phase(torch, port, lk, card):
     go2 = path_launches(lk, 'render Go2', GO2_PATH)
     S = RENDER_STEPS * env0.n_substeps
     expect_launches(go2, {'spd_solve_lanes': S + 1,
-                          '_newton_lanes_core': S + 1})
+                          '_newton_lanes_core': S + 1, 'assemble_rows': S + 1})
     log(f'render Go2: {GO2_ENV} B 1, {RENDER_STEPS} control steps on the '
         f'main path (its captures included) in '
         f'{wall:.3f} s: {wall / RENDER_STEPS * 1e3:.3f} ms a control step; '
@@ -4023,8 +4171,11 @@ def main() -> int:
   m, d0 = env0.model, state.data
   cube_k3 = record_calls(lk, lambda: fwd_fused.forward_lanes(
       m, d0, implicit=True))['newton_lanes_pyr_t'][-1]
-  cube_k4 = record_calls(lk, lambda: fwd_fused.forward_lanes(
-      m, d0, implicit=True, basis=False))['_newton_lanes_core'][-1]
+  cube_generic = record_calls(lk, lambda: fwd_fused.forward_lanes(
+      m, d0, implicit=True, basis=False))
+  cube_k4 = cube_generic['_newton_lanes_core'][-1]
+  cube_k5 = cube_generic['assemble_rows'][-1]
+  del cube_generic
   # from a cold start: d0.qacc is already this state's solution, from which
   # no step is accepted
   cold = torch.zeros_like(cube_k4[5])
@@ -4044,7 +4195,11 @@ def main() -> int:
       torch, lk, calls['_newton_lanes_core'][-1], cube_k4, cube_k3)
   rows['K1 at nv 18 (Go2)'] = k1_row(torch, lk, 'Go2',
                                      calls['spd_solve_lanes'][-2:])
-  del calls, cube_k3, cube_k4
+  if len(calls['assemble_rows']) != n_sub:
+    raise SystemExit('a Go2 control step must call K5 once a substep')
+  rows.update(check_k5(torch, port, lk, gen, calls['assemble_rows'][-1],
+                       cube_k5))
+  del calls, cube_k3, cube_k4, cube_k5
   report(rows)
   if '--kernels-only' in argv:
     log('kernels-only: stopped after phase 2 (no result line)')

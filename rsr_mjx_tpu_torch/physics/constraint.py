@@ -186,6 +186,57 @@ def _kbi(sr: torch.Tensor, dmax: torch.Tensor):
   return torch.where(standard, k_std, k_dir), torch.where(standard, b_std, b_dir)
 
 
+def soft_rows(vel, pos, margin, sr, si, diagA, onesided, zero):
+  """aref and D of constraint rows (MuJoCo's soft constraints) from their
+  velocities vel = J·qvel, pos, margin, diagA (R, B), solref ``sr`` (R, 2,
+  B), solimp ``si`` (R, 5, B) and ``onesided`` (R, 1) bool; aref and D are
+  ``zero`` where a one-sided row's pos − margin >= 0."""
+  imp = _impedance(si, pos - margin)
+  kk, bb = _kbi(sr, si[:, 1])  # dmax = raw solimp[1], as the reference
+  aref = -bb * vel - kk * imp * (pos - margin)
+  Rreg = torch.clamp(
+      (1.0 - imp) / torch.clamp(imp, min=_MJ_MINVAL) * diagA, min=_MJ_MINVAL
+  )
+  D = 1.0 / Rreg
+  off = onesided & (pos - margin >= 0.0)
+  return torch.where(off, zero, aref), torch.where(off, zero, D)
+
+
+def contact_jacobians(cdof, cdof_anchor, c_pos, c_frame, dmask):
+  """The contacts' normal Jacobian and their friction axes.  cdof (nv, 6,
+  B), cdof_anchor (nv, 3, B), contact points c_pos (nc, 3, B), frames
+  c_frame (nc, 9, B), dof masks dmask (nc, nv, B or 1).  Returns (Jn
+  (nc, nv, B), friction_axes): ``friction_axes(nf)`` is the list of the
+  first nf of t1, t2, torsion, roll1, roll2, each (nc, nv, B); it builds
+  all five whatever nf is."""
+  ang = [cdof[:, k] for k in range(3)]  # each (nv, B)
+  lin = [cdof[:, 3 + k] for k in range(3)]
+  anch = cdof_anchor  # (nv, 3, B)
+
+  def contract(jac, vec9, off):
+    """Σ_k jac[k] * frame component (off + k); jac[k] (nc, nv, B)."""
+    return sum(jac[k] * vec9[:, off + k][:, None, :] for k in range(3))
+
+  jac_p, jac_r = [], []
+  for k in range(3):
+    relk2 = c_pos[:, (k + 2) % 3][:, None, :] - anch[:, (k + 2) % 3][None]
+    relk1 = c_pos[:, (k + 1) % 3][:, None, :] - anch[:, (k + 1) % 3][None]
+    jac_t = (lin[k][None] + ang[(k + 1) % 3][None] * relk2
+             - ang[(k + 2) % 3][None] * relk1)  # (nc, nv, B)
+    jac_p.append(jac_t * dmask)
+    jac_r.append(ang[k][None] * dmask)
+
+  Jn = contract(jac_p, c_frame, 0)  # (nc, nv, B)
+  friction_axes = lambda nf: [
+      contract(jac_p, c_frame, 3),  # t1
+      contract(jac_p, c_frame, 6),  # t2
+      contract(jac_r, c_frame, 0),  # torsion
+      contract(jac_r, c_frame, 3),  # roll1
+      contract(jac_r, c_frame, 6),  # roll2
+  ][:nf]
+  return Jn, friction_axes
+
+
 class AssembleLeaves(NamedTuple):
   """Inputs of the assembly, every one with the batch in the trailing axis.
   The six dynamic leaves (qpos, qvel, cdof, cdof_anchor, geom_xpos,

@@ -29,6 +29,7 @@ SIGNATURES = {
     'contact_select': ('contact_select_launch', [P] * 6 + [I] * 7 + [P]),
     'newton_pyr': ('newton_pyr_launch', [P] * 16 + [I] * 8 + [P]),
     'newton_generic': ('newton_generic_launch', [P] * 12 + [I] * 6 + [P]),
+    'assemble_rows': ('assemble_rows_launch', [P] * 16 + [I] * 10 + [F, P]),
 }
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']

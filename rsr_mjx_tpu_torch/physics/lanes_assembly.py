@@ -12,7 +12,11 @@ leaves in lanes (``dyn_lanes=True``), in both forms:
     kernel K4): every contact expanded into its own rows after the
     structured ones, contact-major, then friction axis, then ±; condim-1
     contacts give one normal row each.  Contacts are all the slots (no
-    selection, grouped by condim) or the K2-selected ones.
+    selection, grouped by condim) or the K2-selected ones.  The rows are
+    written into preallocated outputs: the structured ones at their head,
+    the contacts' rows, with their aref, D and floss, into their tail by
+    kernel K5 (``linalg_kernels.assemble_rows``; on the CPU its plain
+    version, the former expansion) in one pass, with no concatenation.
 
 Under domain randomisation the per-slot contact parameters may be per env
 (a randomised ``geom_friction``).  K2 then gathers their 13 columns with the
@@ -52,6 +56,24 @@ def _limit_pattern(m: Model, lim_j: np.ndarray) -> np.ndarray:
   return pattern
 
 
+def contact_row_table(m: Model) -> np.ndarray:
+  """Static (nc, 3) table of the generic route's contacts in row order: the
+  slot each reads (of all ncon slots, or of the nsel selected), its first
+  row counted from the first contact row, its condim.  The condim groups
+  come in ascending order, each contact-major (``constraint.layout``)."""
+  condims = C._condims_static(m)
+  nsel = C._selection_size(m)
+  if nsel:
+    slots, cds = np.arange(nsel), np.full(nsel, condims[0])
+  else:
+    order = [np.nonzero(condims == cd)[0] for cd in sorted(set(condims))]
+    slots = np.concatenate(order) if order else np.zeros(0, np.int64)
+    cds = condims[slots]
+  nrows = np.array([C._contact_rows(int(cd)) for cd in cds], np.int64)
+  first = np.concatenate([[0], np.cumsum(nrows)[:-1]]).astype(np.int64)
+  return np.stack([slots, first, cds], axis=1).astype(np.int32)
+
+
 def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
   """Narrow phase + assembly over a batch.
 
@@ -64,7 +86,8 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
   dist (B, ncon), U (nv, (naxes+1)·nsel, B), arefU ((naxes+1)·nsel, B),
   D_c (nsel, B), naxes).  ``basis=False`` returns the generic rows
   (J (nv, nefc, B), aref, D, floss (nefc, B), dist (B, ncon)) in the order
-  of ``constraint.layout``.
+  of ``constraint.layout``, the contacts' rows from K5 (with grad mode on
+  and an input requiring grad, through ``linalg_kernels.AssembleRows``).
   """
   lay = C.layout_cached(m)
   nv = m.nv
@@ -192,10 +215,9 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
       c_dist = dist_l  # (ncon, B)
       c_pos = pos_l  # (ncon, 3, B)
       c_frame = frame_l.reshape(m.ncon, 9, B)
-      c_friction = bc(lv.con_friction)
-      c_solref = bc(lv.con_solref)
-      c_solimp = bc(lv.con_solimp)
-      c_invw = bc(lv.con_invweight)
+      # shared (B 1) or per env (B)
+      c_friction, c_solref, c_solimp, c_invw = (
+          lv.con_friction, lv.con_solref, lv.con_solimp, lv.con_invweight)
       dmask = dmask_all[:, :, None]  # (ncon, nv, 1)
       groups = [
           (cd, const(f'condim{cd}_slots',
@@ -203,33 +225,9 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
           for cd in sorted(set(int(x) for x in condims))
       ]
 
-    ang = [lv.cdof[:, k] for k in range(3)]  # each (nv, B)
-    lin = [lv.cdof[:, 3 + k] for k in range(3)]
-    anch = lv.cdof_anchor  # (nv, 3, B)
-
-    def contract(jac, vec9, off):
-      """Σ_k jac[k] * frame component (off + k); jac[k] (nc, nv, B)."""
-      return sum(jac[k] * vec9[:, off + k][:, None, :] for k in range(3))
-
-    jac_p, jac_r = [], []
-    for k in range(3):
-      relk2 = c_pos[:, (k + 2) % 3][:, None, :] - anch[:, (k + 2) % 3][None]
-      relk1 = c_pos[:, (k + 1) % 3][:, None, :] - anch[:, (k + 1) % 3][None]
-      jac_t = (lin[k][None] + ang[(k + 1) % 3][None] * relk2
-               - ang[(k + 2) % 3][None] * relk1)  # (nc, nv, B)
-      jac_p.append(jac_t * dmask)
-      jac_r.append(ang[k][None] * dmask)
-
-    Jn = contract(jac_p, c_frame, 0)  # (nc, nv, B)
-    friction_axes = lambda nf: [
-        contract(jac_p, c_frame, 3),  # t1
-        contract(jac_p, c_frame, 6),  # t2
-        contract(jac_r, c_frame, 0),  # torsion
-        contract(jac_r, c_frame, 3),  # roll1
-        contract(jac_r, c_frame, 6),  # roll2
-    ][:nf]
-
     if basis:
+      Jn, friction_axes = C.contact_jacobians(lv.cdof, lv.cdof_anchor, c_pos,
+                                              c_frame, dmask)
       nf = int(condims[0]) - 1
       axes = friction_axes(nf)
       U_parts = [Jn.transpose(0, 1)]  # (nv, nc, B)
@@ -257,76 +255,56 @@ def assemble_lanes(m: Model, lv: C.AssembleLeaves, basis: bool = True):
           dim=0,
       )
       basis_out = (U_basis, arefU.contiguous(), D_c.contiguous(), nf)
-      groups = []
-
-    # generic rows: each condim group's contacts, contact-major, then
-    # friction axis, then ±
-    for cd, sel_g in groups:
-      g = lambda x: x[sel_g]
-      k = g(c_dist).shape[0]
-      if cd == 1:
-        J_blocks.append(g(Jn).transpose(0, 1))  # (nv, k, B)
-        pos_blocks.append(g(c_dist))
-        sr_blocks.append(g(c_solref))
-        si_blocks.append(g(c_solimp))
-        diagA_blocks.append(g(c_invw))
-        floss_blocks.append(zrow(k))
-        margin_blocks.append(zrow(k))
-        continue
-      nf = cd - 1
-      axes = friction_axes(nf)
-      Jn_g = g(Jn)
-      rows = []
-      for i in range(nf):
-        mu_i = g(c_friction[:, i])[:, None, :]  # (k, 1, B)
-        ax = g(axes[i])
-        rows.append(Jn_g + mu_i * ax)
-        rows.append(Jn_g - mu_i * ax)
-      nrep = nf * 2
-      rows = torch.stack(rows, dim=1).reshape(k * nrep, nv, B)
-      J_blocks.append(rows.transpose(0, 1))  # (nv, k·nrep, B)
-      rep = lambda x: torch.repeat_interleave(x, nrep, dim=0)
-      pos_blocks.append(rep(g(c_dist)))
-      sr_blocks.append(rep(g(c_solref)))
-      si_blocks.append(rep(g(c_solimp)))
-      mu0 = g(c_friction[:, 0])
-      diagA_blocks.append(rep(
-          g(c_invw) * 2.0 * torch.clamp(mu0 * mu0, min=_MJ_MINVAL)
-          / m.opt.impratio))
-      floss_blocks.append(zrow(k * nrep))
-      margin_blocks.append(zrow(k * nrep))
+    else:
+      # the contacts' generic rows (K5), written after the structured ones
+      spec = _lk.RowSpec(tuple(groups), const(
+          'selected_row_table' if nsel else 'contact_row_table',
+          lambda: contact_row_table(m), torch.int32), lay.n_con)
+      rows_in = tuple(x.contiguous() for x in (
+          qvel, lv.cdof, lv.cdof_anchor, c_dist, c_pos, c_frame, c_friction,
+          c_solref, c_solimp, c_invw, dmask))
   else:
     dist_bm = torch.zeros((B, 0), dtype=dtype, device=dev)
 
   # ---- structured rows: impedance, aref, D
-  J = torch.cat(J_blocks, dim=1)  # (nv, Rs, B)
+  n_struct = lay.n_eq + lay.n_fri + lay.n_lim
+  if basis:
+    J = torch.cat(J_blocks, dim=1)  # (nv, Rs, B)
+  else:
+    # the generic rows: the structured blocks written into the head of J,
+    # the contacts' rows (K5) into its tail
+    J = torch.empty((nv, lay.nefc, B), dtype=dtype, device=dev)
+    aref = torch.empty((lay.nefc, B), dtype=dtype, device=dev)
+    D, floss = torch.empty_like(aref), torch.empty_like(aref)
+    r = 0
+    for blk in J_blocks:
+      J[:, r : r + blk.shape[1]] = blk
+      r += blk.shape[1]
+    if r != n_struct or lay.nefc != n_struct + (spec.n_rows if m.ncon else 0):
+      raise AssertionError((r, lay))
+    if m.ncon:
+      _lk.contact_rows(spec, m.opt.impratio, *rows_in, J, aref, D, floss)
   pos = torch.cat(pos_blocks, dim=0)  # (Rs, B)
   sr = torch.cat(sr_blocks, dim=0)  # (Rs, 2, B)
   si = torch.cat(si_blocks, dim=0)  # (Rs, 5, B)
   diagA = torch.cat(diagA_blocks, dim=0)
-  floss = torch.cat(floss_blocks, dim=0)
+  floss_s = torch.cat(floss_blocks, dim=0)
   margin = torch.cat(margin_blocks, dim=0)
-  if basis:
-    n_rows, tag = lay.n_eq + lay.n_fri + lay.n_lim, 'struct'
-  else:
-    n_rows, tag = lay.nefc, 'all'
-  if J.shape[1] != n_rows:
-    raise AssertionError((J.shape, lay))
-  kind = lay.kind[:n_rows]
-
-  imp = C._impedance(si, pos - margin)
-  kk, bb = C._kbi(sr, si[:, 1])  # dmax = raw solimp[1], as the reference
-  vel = torch.sum(J * qvel[:, None, :], dim=0)  # (R, B)
-  aref = -bb * vel - kk * imp * (pos - margin)
-  Rreg = torch.clamp(
-      (1.0 - imp) / torch.clamp(imp, min=_MJ_MINVAL) * diagA, min=_MJ_MINVAL
-  )
-  D = 1.0 / Rreg
-  onesided = const(f'{tag}_onesided',
+  if pos.shape[0] != n_struct:
+    raise AssertionError((pos.shape, lay))
+  kind = lay.kind[:n_struct]
+  onesided = const('struct_onesided',
                    lambda: ((kind == C.LIMIT) | (kind == C.CONTACT))[:, None],
                    torch.bool)
-  off = onesided & (pos - margin >= 0.0)
-  D = torch.where(off, zero, D)
-  aref = torch.where(off, zero, aref)
-  return (J.contiguous(), aref.contiguous(), D.contiguous(),
-          floss.contiguous(), dist_bm) + basis_out
+  # J·qvel of the structured rows; on the CPU summed over every row of J, as
+  # the plain K5 sums the contacts' (the CPU's rounding of the sum depends on
+  # the shape summed, and the tests hold these rows to the former assembly's
+  # bit for bit)
+  Jv = J if basis or dev.type == 'cpu' else J[:, :n_struct]
+  vel = torch.sum(Jv * qvel[:, None, :], dim=0)[:n_struct]
+  aref_s, D_s = C.soft_rows(vel, pos, margin, sr, si, diagA, onesided, zero)
+  if basis:
+    return (J.contiguous(), aref_s.contiguous(), D_s.contiguous(),
+            floss_s.contiguous(), dist_bm) + basis_out
+  aref[:n_struct], D[:n_struct], floss[:n_struct] = aref_s, D_s, floss_s
+  return J, aref, D, floss, dist_bm

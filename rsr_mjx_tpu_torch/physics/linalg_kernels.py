@@ -1,5 +1,7 @@
 """The batched small linear algebra of the physics step: four Hopper
-kernels, each beside a plain PyTorch version of the same function.
+kernels, each beside a plain PyTorch version of the same function, and a
+fifth (K5 ``assemble_rows``) that writes the constraint assembly's generic
+contact rows, which replaces no TPU kernel (see its section).
 
 Counterpart of ``rsr_mjx_tpu/physics/linalg_kernels.py``, whose Pallas TPU
 kernels these replace:
@@ -36,10 +38,12 @@ versions also take float64, so the CPU path can run as a float64 reference.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from rsr_mjx_tpu_torch.physics import constraint as _C
 from rsr_mjx_tpu_torch.physics import cuda_build
 from rsr_mjx_tpu_torch.utils import tracing
 
@@ -63,8 +67,8 @@ _PART_WORDS = 128
 # 'launches'; zero them with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
 LAUNCHES = tracing.group('launches')
 LAUNCHES.update(dict.fromkeys(('spd_solve_lanes', 'contact_select_lanes',
-                               'newton_lanes_pyr_t', '_newton_lanes_core'),
-                              0))
+                               'newton_lanes_pyr_t', '_newton_lanes_core',
+                               'assemble_rows'), 0))
 
 
 def _check(name: str, t: torch.Tensor, shape, ref: torch.Tensor) -> None:
@@ -877,3 +881,222 @@ def newton_solve_batched(kind: np.ndarray, iterations: int,
   (linalg_kernels.py:1009), which the solve of ``solver`` calls."""
   return newton_solve_lanes(kind, iterations, ls_iterations, M, a0, x0,
                             J.permute(2, 1, 0), aref.t(), D.t(), floss.t())
+
+
+# ---------------------------------------------------------------------------
+# K5 — the generic route's contact rows of the constraint assembly.
+#
+# Replaces no TPU kernel: the JAX lanes assembly expands the contacts into
+# pyramid rows with array operations that XLA fuses inside the step's jit,
+# which the port ran as eager ATen kernels over full (contacts, nv, B)
+# tensors (~14 GB of traffic a substep on the Go2 full scene).  Each contact
+# gives its rows after the structured ones, grouped by condim, contact-major,
+# then friction axis, then ±: Jn for condim 1, Jn ± μᵢ·axisᵢ for condim 3,
+# 4 and 6; with each row's aref, D and floss (0).  Bound on the H100: the
+# write of J, 191 MB of its 324 contact rows on the full scene at B 8192
+# (0.088 ms at 3.35 TB/s with the 104 MB else it reads and writes).
+# Design: 32 envs a block with the env
+# index fastest across lanes, so every store of a (dof, row) entry is one
+# 128-byte run; the block's cdof, anchors and qvel staged once in shared
+# memory; its warps take the contacts in turn, a contact's rows and their
+# J·qvel sums in registers, so J is written once and never read back.
+# ---------------------------------------------------------------------------
+
+# the condims MuJoCo admits, each compiled into K5
+_ROW_CONDIMS = (1, 3, 4, 6)
+
+
+class RowSpec(NamedTuple):
+  """Static layout of a model's generic contact rows.  ``groups``: the
+  (condim, slots) of each condim group in row order, slots a long tensor or
+  ``slice(None)``; ``tab`` (nc, 3) int32 on the device: each contact's
+  slot, first row (from the first contact row) and condim, in the same
+  order; ``n_rows``: the contact rows."""
+
+  groups: tuple
+  tab: torch.Tensor
+  n_rows: int
+
+
+def assemble_rows_plain(spec: RowSpec, impratio: float, qvel, cdof,
+                        cdof_anchor, dist, pos, frame, friction, solref,
+                        solimp, invweight, dmask, J, aref, D, floss) -> None:
+  """Plain version of K5; same arguments as :func:`assemble_rows`.  The
+  velocities J·qvel are summed over every row of J, as the assembly
+  summed them before K5 (on the CPU the rounding of that sum depends on
+  the shape summed), so the rows equal the former assembly's bit for
+  bit."""
+  nv, B = qvel.shape
+  r0 = J.shape[1] - spec.n_rows
+  bc = lambda x: x.expand(x.shape[:-1] + (B,))
+  c_friction, c_solref, c_solimp, c_invw = (
+      bc(x) for x in (friction, solref, solimp, invweight))
+  Jn, friction_axes = _C.contact_jacobians(cdof, cdof_anchor, pos, frame,
+                                           dmask)
+  J_blocks, pos_blocks, sr_blocks, si_blocks, diagA_blocks = [], [], [], [], []
+  for cd, sel_g in spec.groups:
+    g = lambda x: x[sel_g]
+    k = g(dist).shape[0]
+    if cd == 1:
+      J_blocks.append(g(Jn).transpose(0, 1))  # (nv, k, B)
+      pos_blocks.append(g(dist))
+      sr_blocks.append(g(c_solref))
+      si_blocks.append(g(c_solimp))
+      diagA_blocks.append(g(c_invw))
+      continue
+    nf = cd - 1
+    axes = friction_axes(nf)
+    Jn_g = g(Jn)
+    rows = []
+    for i in range(nf):
+      mu_i = g(c_friction[:, i])[:, None, :]  # (k, 1, B)
+      ax = g(axes[i])
+      rows.append(Jn_g + mu_i * ax)
+      rows.append(Jn_g - mu_i * ax)
+    nrep = nf * 2
+    rows = torch.stack(rows, dim=1).reshape(k * nrep, nv, B)
+    J_blocks.append(rows.transpose(0, 1))  # (nv, k·nrep, B)
+    rep = lambda x: torch.repeat_interleave(x, nrep, dim=0)
+    pos_blocks.append(rep(g(dist)))
+    sr_blocks.append(rep(g(c_solref)))
+    si_blocks.append(rep(g(c_solimp)))
+    mu0 = g(c_friction[:, 0])
+    diagA_blocks.append(rep(
+        g(c_invw) * 2.0 * torch.clamp(mu0 * mu0, min=_C._MJ_MINVAL)
+        / impratio))
+  J[:, r0:] = torch.cat(J_blocks, dim=1)
+  pos_r = torch.cat(pos_blocks, dim=0)
+  zrow = torch.zeros_like(pos_r)
+  zero = torch.zeros((), dtype=pos_r.dtype, device=pos_r.device)
+  onesided = torch.ones((pos_r.shape[0], 1), dtype=torch.bool,
+                        device=pos_r.device)
+  vel = torch.sum(J * qvel[:, None, :], dim=0)[r0:]
+  aref[r0:], D[r0:] = _C.soft_rows(
+      vel, pos_r, zrow, torch.cat(sr_blocks), torch.cat(si_blocks),
+      torch.cat(diagA_blocks), onesided, zero)
+  floss[r0:] = zrow
+
+
+def check_assemble_rows_fits(nv: int) -> None:
+  """Raise unless K5 takes nv dofs: nv <= 64 (the block's staged cdof,
+  anchors and qvel, 1280·nv bytes, within its shared memory)."""
+  if nv > 64:
+    raise ValueError(f'assemble_rows kernel takes nv <= 64, got {nv}')
+
+
+def assemble_rows(spec: RowSpec, impratio: float, qvel, cdof, cdof_anchor,
+                  dist, pos, frame, friction, solref, solimp, invweight,
+                  dmask, J, aref, D, floss) -> None:
+  """The contacts' generic rows, written into the last ``spec.n_rows`` rows
+  of J (nv, R, B), aref, D, floss (R, B).
+
+  qvel (nv, B), cdof (nv, 6, B), cdof_anchor (nv, 3, B); per contact slot
+  dist (ncon, B), pos (ncon, 3, B), frame (ncon, 9, B) and its parameters
+  friction (ncon, 5, ·), solref (ncon, 2, ·), solimp (ncon, 5, ·),
+  invweight (ncon, ·) and dof mask dmask (ncon, nv, ·), each with a
+  trailing axis of B (per env) or 1 (shared); ``impratio`` the model's.
+  The CUDA route takes nv <= 64 and condims 1, 3, 4 and 6; its J equals
+  the plain version's bit for bit (up to the sign of a zero), its aref the
+  plain one's up to the order of the nv-term sum J·qvel."""
+  nv, B = qvel.shape
+  ncon, R, n = dist.shape[0], J.shape[1], spec.n_rows
+  for name, t, shape in (
+      ('qvel', qvel, (nv, B)), ('cdof', cdof, (nv, 6, B)),
+      ('cdof_anchor', cdof_anchor, (nv, 3, B)), ('dist', dist, (ncon, B)),
+      ('pos', pos, (ncon, 3, B)), ('frame', frame, (ncon, 9, B)),
+      ('J', J, (nv, R, B)), ('aref', aref, (R, B)), ('D', D, (R, B)),
+      ('floss', floss, (R, B))):
+    _check(name, t, shape, qvel)
+  for name, t, width in (('friction', friction, (5,)),
+                         ('solref', solref, (2,)), ('solimp', solimp, (5,)),
+                         ('invweight', invweight, ()), ('dmask', dmask, (nv,))):
+    if t.shape[-1] not in (1, B):
+      raise ValueError(f'{name}: trailing axis {t.shape[-1]}, expected 1 '
+                       f'or {B}')
+    _check(name, t, (ncon,) + width + (t.shape[-1],), qvel)
+  if n > R:
+    raise ValueError(f'{n} contact rows do not fit the {R} rows of J')
+  r0 = R - n
+  if _route(qvel) == 'plain':
+    assemble_rows_plain(spec, impratio, qvel, cdof, cdof_anchor, dist, pos,
+                        frame, friction, solref, solimp, invweight, dmask, J,
+                        aref, D, floss)
+    return
+  check_assemble_rows_fits(nv)
+  bad = sorted({cd for cd, _ in spec.groups} - set(_ROW_CONDIMS))
+  if bad:
+    raise ValueError(f'assemble_rows kernel takes condims {_ROW_CONDIMS}, '
+                     f'got {bad}')
+  tab = spec.tab
+  if (tab.dtype != torch.int32 or tab.device != qvel.device
+      or tab.dim() != 2 or tab.shape[1] != 3 or not tab.is_contiguous()):
+    raise ValueError('spec.tab must be a contiguous (nc, 3) int32 tensor on '
+                     f'{qvel.device}')
+  inv_imp = float(np.float32(1.0) / np.float32(impratio))
+  LAUNCHES['assemble_rows'] += 1
+  _launch('assemble_rows', tab.data_ptr(), *(t.data_ptr() for t in (
+      qvel, cdof, cdof_anchor, dist, pos, frame, friction, solref, solimp,
+      invweight, dmask, J, aref, D, floss)), tab.shape[0], nv, R, r0, B,
+          *(t.shape[-1] for t in (friction, solref, solimp, invweight,
+                                  dmask)), inv_imp, _stream())
+
+
+class AssembleRows(torch.autograd.Function):
+  """K5 (its plain version on the CPU) into fresh rows (J (nv, n_rows, B),
+  aref, D, floss (n_rows, B)); backward the VJP of
+  ``assemble_rows_plain`` recomputed from the saved inputs, so the gradient
+  is that of the plain expansion.  No benchmark cell runs this path: its
+  one caller is the tuning gradient's recomputation
+  (``fwd_fused.FusedRegion.backward``).  A hand-written backward waits for
+  a cell that measures that gradient (``cube_push.tune``)."""
+
+  @staticmethod
+  def forward(ctx, spec, impratio, *inputs):
+    ctx.set_materialize_grads(False)
+    outs = _fresh_rows(spec, inputs[0])
+    assemble_rows(spec, impratio, *inputs, *outs)
+    ctx.save_for_backward(*inputs)
+    ctx.spec, ctx.impratio = spec, impratio
+    ctx.mark_non_differentiable(outs[3])
+    return outs
+
+  @staticmethod
+  def backward(ctx, *cts):
+    needs = ctx.needs_input_grad[2:]
+    inputs = [t.detach().requires_grad_(n)
+              for t, n in zip(ctx.saved_tensors, needs)]
+    with torch.enable_grad():
+      outs = _fresh_rows(ctx.spec, inputs[0])
+      assemble_rows_plain(ctx.spec, ctx.impratio, *inputs, *outs)
+    pairs = [(o, c) for o, c in zip(outs[:3], cts[:3])
+             if c is not None and o.requires_grad]
+    wrt = [t for t, n in zip(inputs, needs) if n]
+    if not pairs or not wrt:
+      return (None,) * (2 + len(needs))
+    grads = iter(torch.autograd.grad(
+        [o for o, _ in pairs], wrt, [c for _, c in pairs], allow_unused=True))
+    return (None, None) + tuple(next(grads) if n else None for n in needs)
+
+
+def _fresh_rows(spec: RowSpec, qvel):
+  """Zeroed (J (nv, n_rows, B), aref, D, floss (n_rows, B)) like qvel."""
+  nv, B = qvel.shape
+  n = spec.n_rows
+  return (qvel.new_zeros((nv, n, B)),) + tuple(
+      qvel.new_zeros((n, B)) for _ in range(3))
+
+
+def contact_rows(spec: RowSpec, impratio: float, *args) -> None:
+  """``assemble_rows`` that carries gradients: with grad mode on and an
+  input requiring grad, the rows come from ``AssembleRows`` and are copied
+  into the outputs' last rows; else ``assemble_rows`` writes them there
+  itself (no tensor saved, one launch on a card)."""
+  inputs, outs = args[:11], args[11:]
+  if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    rows = AssembleRows.apply(spec, impratio, *inputs)
+    r0 = outs[0].shape[1] - spec.n_rows
+    J, aref, D, floss = outs
+    for out, x in zip((J[:, r0:], aref[r0:], D[r0:], floss[r0:]), rows):
+      out.copy_(x)
+    return
+  assemble_rows(spec, impratio, *args)

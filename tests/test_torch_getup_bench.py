@@ -88,7 +88,8 @@ def test_scene_sizes_match_the_configuration(config, kernel):
   ``chip_smoke.call_shape`` (which ``chip_smoke.py``'s bounds read) to the
   ``shape`` of ``benchmark/roofline`` (which ``kernel_roofline.*`` reads),
   against the configuration's ``kernels`` entry; no other kernel is
-  called.  For the Go2 configurations also the contact slots and
+  called but K5, once a substep where the rows are generic.  For the Go2
+  configurations also the contact slots and
   constraint rows from the model's static layout: the full-collision
   scene's five pair groups (4 + 2 × 26 + 6 + 24 + 70 slots; 56 at condim
   3 × 4 pyramid rows, 100 at condim 1, 18 friction-loss rows, 24 limit
@@ -100,6 +101,10 @@ def test_scene_sizes_match_the_configuration(config, kernel):
   m, calls = _substep_calls(config)
   called = {chip_smoke.KERNELS[name][0]: (name, c)
             for name, c in calls.items() if c}
+  # K5 (the generic contact rows) replaces no TPU kernel and has no
+  # roofline: once a substep on the generic route (the Go2
+  # configurations), never on cube-push's basis route
+  assert len(called.pop('K5', (None, []))[1]) == (0 if 'K3' in k else 1)
   assert set(called) == set(k)
   wrapper, kernel_calls = called[kernel]
   shape = {n: v for n, v in k[kernel].items() if n != 'calls_per_substep'}

@@ -139,7 +139,8 @@ def test_launches_is_the_registry_counter_group():
   tracing.reset()
   assert plk.LAUNCHES is tracing.group('launches')
   assert set(plk.LAUNCHES) == {'spd_solve_lanes', 'contact_select_lanes',
-                               'newton_lanes_pyr_t', '_newton_lanes_core'}
+                               'newton_lanes_pyr_t', '_newton_lanes_core',
+                               'assemble_rows'}
   assert not any(plk.LAUNCHES.values())
 
 
